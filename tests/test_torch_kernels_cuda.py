@@ -1,0 +1,107 @@
+"""The port's CUDA kernels against their plain twins on the card.
+
+The card tests are marked ``cuda`` and skip when no CUDA device is visible (decided
+inside the test).  On a machine with a GPU and nvcc:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda --noconftest
+
+(``--noconftest``: tests/conftest.py configures JAX, which the GPU machine
+need not have; this file imports nothing of it.)
+
+B1/B2 must equal their twins bit for bit; B3 must agree within 3e-3 on R
+and t, one iteration and 0.02 quality (reduction order differs)."""
+
+import numpy as np
+import pytest
+import torch
+
+from mola_lidar_odometry_tpu_torch.ops import pallas_capture as pc, pallas_icp as pi, se3
+from mola_lidar_odometry_tpu_torch.ops import voxel_hash as vh
+from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud
+
+B = 3
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return "cuda"
+
+
+def _scene(dev, n=700, seed=0):
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-8, 8, (B, 4000, 3)).astype(np.float32)
+    pts[:, :2000, 2] = 0.0
+    m = vh.VoxelHashMap.create(1 << 12, 20, 1.0, batch=B, device=dev)
+    m, _ = vh.insert_stats(m, PointCloud.from_xyz(torch.from_numpy(pts).to(dev)))
+    local = pts[:, rng.integers(0, 4000, n)] + rng.normal(0, 0.05, (B, n, 3)).astype(np.float32)
+    valid = rng.random((B, n)) > 0.1
+    return m, torch.from_numpy(local).to(dev), torch.from_numpy(valid).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbr", [1, 4, 8, 27])
+def test_capture_kernels_bit_exact(dev, nbr):
+    m, q, valid = _scene(dev)
+    args = (m.data, m.voxel_size, m.epoch, q, nbr)
+    kw = dict(K=m.K, stride=m.stride, valid=valid, return_rows=True)
+    got, ref = pc.capture_planar(*args, **kw), pc.capture_planar_plain(*args, **kw)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    moved = se3.transform(se3.se3_exp(torch.tensor([0.05, 0.0, -0.02, 0.0, 0.01, 0.0], device=dev).expand(B, 6)), q)
+    args2 = (got[4], m.voxel_size, m.epoch, moved.contiguous(), q, nbr)
+    kw2 = dict(K=m.K, stride=m.stride, valid=valid)
+    for g, r in zip(pc.capture_planar_reselect(*args2, **kw2), pc.capture_planar_reselect_plain(*args2, **kw2)):
+        assert torch.equal(g, r)
+
+
+def _align_close(got, ref):
+    assert float((got[0] - ref[0]).abs().max()) < 3e-3
+    assert float((got[1] - ref[1]).abs().max()) < 3e-3
+    assert int((got[2] - ref[2]).abs().max()) <= 1
+    assert float((got[5] - ref[5]).abs().max()) < 0.02
+    assert torch.equal(got[3], ref[3]) and torch.equal(got[4], ref[4])
+
+
+@pytest.mark.cuda
+def test_align_kernel_matches_plain(dev):
+    """Both phases of one fused align: entry poses 6-25 cm off the answer
+    (the last far enough for the twist hook), a prior that pulls, phase 2
+    resuming from phase 1's iteration count with the entry pose as hook
+    reference."""
+    m, q, valid = _scene(dev, seed=1)
+    entry = se3.se3_exp(torch.tensor(
+        [[0.06, -0.03, 0.0, 0.0, 0.0, 0.004], [0.1, 0.02, 0.01, 0.002, 0.0, -0.005],
+         [0.25, 0.0, 0.0, 0.0, 0.0, 0.0]], device=dev))
+    prior = se3.se3_exp(torch.tensor([0.03, 0.02, 0.0, 0.0, 0.0, 0.002], device=dev).expand(B, 6))
+    info = torch.diag_embed(torch.tensor([500.0] * 3 + [2e5] * 3, device=dev).expand(B, 6)).contiguous()
+    maxit = 60
+    ann = torch.clamp(2.0 - 1.5 * torch.arange(maxit, device=dev) / 10, min=1.0).expand(B, maxit)
+    thr, kc = (2 * ann).contiguous(), (0.5 * ann).contiguous()
+    budget = torch.full((B,), maxit, dtype=torch.int32, device=dev)
+    kw = dict(min_abs_step_trans=1e-4, min_abs_step_rot=5e-5, hook_min_trans=0.15, hook_min_rot=0.0131,
+              hook_ref_R=entry.R, hook_ref_t=entry.t)
+    q0 = se3.transform(entry, q).contiguous()
+    cx, cy, cz, cm, rows = pc.capture_planar(m.data, m.voxel_size, m.epoch, q0, 8, K=m.K, stride=m.stride,
+                                             valid=valid, return_rows=True)
+    zero = torch.zeros((B,), dtype=torch.int32, device=dev)
+    args1 = ((cx, cy, cz, cm), q, valid, entry.R, entry.t, prior.R, prior.t, info, thr, kc,
+             torch.clamp(budget, max=8))
+    ref1 = pi.align_fused_plain(*args1, it0=zero, **kw)
+    _align_close(pi.align_fused(*args1, it0=zero, **kw), ref1)
+    assert ref1[3].tolist() == [False, False, True]
+    planar2 = pc.capture_planar_reselect(rows, m.voxel_size, m.epoch, se3.transform(se3.Pose(ref1[0], ref1[1]), q),
+                                         q0, 8, K=m.K, stride=m.stride, valid=valid)
+    args2 = (planar2, q, valid, ref1[0], ref1[1], prior.R, prior.t, info, thr, kc, budget - ref1[2])
+    _align_close(pi.align_fused(*args2, it0=ref1[2], **kw), pi.align_fused_plain(*args2, it0=ref1[2], **kw))
+
+
+def test_cpu_tensors_take_the_plain_twin():
+    """On the CPU the wrappers run their twins and count no launch."""
+    m, q, valid = _scene("cpu")
+    before = pc.capture_planar.launches
+    out = pc.capture_planar(m.data, m.voxel_size, m.epoch, q, 8, K=m.K, stride=m.stride, valid=valid)
+    ref = pc.capture_planar_plain(m.data, m.voxel_size, m.epoch, q, 8, K=m.K, stride=m.stride, valid=valid)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert pc.capture_planar.launches == before
