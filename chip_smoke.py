@@ -9,7 +9,8 @@ Phases, one line of numbers each:
                exits non-zero when no CUDA device is visible;
   2. build   — compiles the port's CUDA kernels from csrc/ (one nvcc per
                source, all at once) and reports the seconds;
-  3. kernels — runs kernels B1, B2 and B3 at bench shapes (B=8 instances,
+  3. kernels — runs every kernel against its plain PyTorch twin on the card.
+               B1, B2 and B3 at bench shapes (B=8 instances,
                3072 ICP points, 8 probes, 16 candidates, a 65536-slot K=20
                map filled by the port's insert) against their plain PyTorch
                twins on the card, in the order and with the arguments of one
@@ -17,16 +18,30 @@ Phases, one line of numbers each:
                answer, phase 1 from iteration 0, reselect, phase 2 resuming
                the iteration count, a weighted prior, the twist hook firing
                for two instances): B1/B2 must match bit for bit, B3 within
-               3e-3 on R and t, one iteration and 0.02 quality; times each;
+               3e-3 on R and t, one iteration and 0.02 quality.  B4
+               (nn_select) at the dual-map path's shapes (B=8, the sized 3072
+               and 6656 ICP points, C=54 candidates from a 27-probe per-voxel
+               capture of K=20 and K=10 maps filled by the port's insert, some
+               queries with no candidate), and at C=16 with an N that is no
+               multiple of 32: must match bit for bit.  Times each;
   4. main    — steps the B=8 fleet of the lidar3d-default pipeline over the
                first 8 scans of the bench's simulated KITTI-like sequence
                (64 x 2048 rays) on the kernels, with the bench's round-5
                sizing; checks mean quality > 0.9, final-pose GT error < 0.20,
-               no ICP-layer saturation, and that every kernel launched.
+               no ICP-layer saturation, and that B1-B3 launched;
+  5. dual-map — steps the B=8 fleet of pipelines/extras/lidar3d-dual-map.yaml
+               (two point matchers on two hashed-voxel maps, 27 probes, the
+               generic align loop on kernel B4) over the first 6 of the same
+               scans, with capacities sized by the JAX package's
+               utils/capacity.py; checks every frame accepted, mean quality
+               > 0.9, final-pose GT error < 0.20, no reported layer saturated,
+               collision drops <= 0.1%, and that B4 launched.  Prints
+               iterations, launches per step, scans/s and the peak memory.
 
-Then one JSON line describing every kernel, the card's name and power limit,
-and last the JSON result line.  Any failure raises and exits non-zero.
-It imports nothing of JAX and nothing of the JAX package.
+Then one JSON line describing every kernel (launches summed over both
+paths), the card's name and power limit, and last the JSON result line.  Any
+failure raises and exits non-zero.  It imports nothing of JAX and nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -34,7 +49,6 @@ from __future__ import annotations
 import json
 import os
 import subprocess
-import sys
 import time
 
 import numpy as np
@@ -54,6 +68,24 @@ SIZING = dict(  # the bench's auto-sizing of this configuration (round 5)
     },
     insert_budgets={"localmap": 4096},
 )
+DUALMAP_SCANS = 6
+# Sizing of pipelines/extras/lidar3d-dual-map.yaml for the same scans, by the
+# JAX package's utils/capacity.py (host-side float64 dry pass over the first
+# scan; printed by eval/port_dualmap_reference.py).
+DUALMAP_SIZING = dict(
+    raw_capacity=1 << 17,
+    map_slots=1 << 17,
+    layer_capacities={
+        "raw": 1 << 17, "decimated_for_map_raw": 11776, "decimated_for_map_skewed": 11776,
+        "decimated_for_icp_skewed": 3072, "decimated_for_icp_near_skewed": 6656,
+        "decimated_for_map": 11776, "decimated_for_icp": 3072, "decimated_for_icp_near": 6656,
+    },
+    insert_budgets={"localmap": 5632, "localmap_far": 5632},
+)
+# Guards of the dual-map phase: the bench's own (mean quality > 0.9, final-pose
+# GT error < 0.20).  The JAX package's CPU run of the same 6 scans with this
+# sizing meets them at 0.9945 and 0.1396 (eval/port_dualmap_reference.py --run).
+DUALMAP_GUARDS = dict(min_mean_quality=0.9, max_gt_error=0.20)
 
 
 def log(*a):
@@ -81,6 +113,25 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_graph_ms(fn, reps: int, inner: int = 20) -> float:
+    """Mean device milliseconds per call of ``fn``: ``inner`` calls are
+    captured into a CUDA graph and the graph is replayed, so the host's cost
+    of issuing a launch (which exceeds a short kernel's run time) is not
+    counted."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    return cuda_ms(graph.replay, reps) / inner
 
 
 def bound(nbytes: float, flops: float):
@@ -113,16 +164,17 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 
-def kernel_inputs(dev, seed=0, n_query=3072):
-    """A bench-sized fleet map (65536 slots, K=20) filled by the port's
-    insert, and per-instance ICP points near the mapped surfaces."""
+def kernel_inputs(dev, seed=0, n_query=3072, slots=1 << 16, K=20):
+    """A bench-sized fleet map (``slots`` slots, ``K`` points per voxel)
+    filled by the port's insert, and per-instance ICP points near the mapped
+    surfaces."""
     import torch
 
     from mola_lidar_odometry_tpu_torch.ops import voxel_hash as vh
     from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud
 
     rng = np.random.default_rng(seed)
-    m = vh.VoxelHashMap.create(1 << 16, 20, 1.0, batch=BATCH, device=dev)
+    m = vh.VoxelHashMap.create(slots, K, 1.0, batch=BATCH, device=dev)
     surf = []
     for _ in range(4):  # four 11776-point frames: ground + walls, 80 m around
         g = rng.uniform(-80, 80, (BATCH, 11776, 2)).astype(np.float32)
@@ -304,8 +356,76 @@ def phase_kernels(dev):
     return recs
 
 
+def phase_kernel_match(dev):
+    """Hold kernel B4 (``nn_select``) against its plain twin on the card at
+    the dual-map path's shapes, as one align of that path calls it: a
+    27-probe per-voxel capture at an entry pose off the answer, then the
+    select at the entry pose and at the answer.  Returns B4's record."""
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.ops import pallas_match as pm, se3, voxel_hash as vh
+
+    caps = DUALMAP_SIZING["layer_capacities"]
+    slots = DUALMAP_SIZING["map_slots"]
+    shapes = [  # (label, map K, N, probes)
+        ("decimated_for_icp -> localmap", 20, caps["decimated_for_icp"], 27),
+        ("decimated_for_icp_near -> localmap_far", 10, caps["decimated_for_icp_near"], 27),
+        ("8 probes, N = 3001", 20, 3001, 8),
+    ]
+    pair, err = [], 0.0  # the two selects of one dual-map iteration, for the timing
+    for label, K, N, P in shapes:
+        m, local, _ = kernel_inputs(dev, seed=K + P, n_query=N, slots=slots, K=K)
+        local = local.clone()
+        local[:, ::31, 2] += 30.0  # points far above the map: no candidate at all
+        xi = torch.tensor([[0.06 + 0.01 * b, -0.04, 0.02, 0.002, -0.003, 0.006] for b in range(BATCH)], device=dev)
+        q_entry = se3.transform(se3.se3_exp(xi), local).contiguous()
+        planar = pm.to_planar(vh.capture(m, q_entry, P, per_voxel_nn=True))
+        C = planar.mask.shape[-1]
+        if C != 2 * P or planar.x.shape != (BATCH, N, C):
+            raise AssertionError(f"B4 {label}: planes {tuple(planar.x.shape)}, expected {(BATCH, N, 2 * P)}")
+        n_none = 0
+        for queries in (q_entry, local.contiguous()):
+            got, ref = pm.nn_select(planar, queries), pm.nn_select_plain(planar, queries)
+            torch.cuda.synchronize()
+            for g, r, name in zip(got, ref, ("target", "d2min")):
+                if not torch.equal(g + 0.0, r + 0.0):
+                    raise AssertionError(f"B4 {label}: {name} differs from its plain twin in "
+                                         f"{int((g != r).sum())} elements")
+            n_none += int((got[1] > 1e37).sum())
+            err = max(err, max_err(got, ref))
+        if n_none == 0:
+            raise AssertionError(f"B4 {label}: the inputs must hold queries with no candidate")
+        log(f"kernels: B4 bit-exact vs plain on {BATCH}x{N}x{C} ({label}; max |d| {err}); "
+            f"{n_none} selects found no candidate")
+        if P == 27:
+            pair.append((planar, q_entry))
+    # Timed as one iteration of the dual-map align calls it: the select over
+    # the first matcher's planes, then over the second's (together larger
+    # than the 50 MB L2, so neither launch finds its planes cached); ms and
+    # bound are per launch, the mean of the two.  The kernel is shorter than
+    # the host's cost of one launch from Python, so its time is taken from a
+    # CUDA graph of the launches; the eager figure is printed beside it.
+    def select_both():
+        for p, q in pair:
+            pm.nn_select(p, q)
+
+    ms = cuda_graph_ms(select_both, 20) / 2
+    eager_ms = cuda_ms(select_both, 50, 5) / 2
+    pms = cuda_ms(lambda: [pm.nn_select_plain(p, q) for p, q in pair], 5, 1) / 2
+    # each input read once (4 planes, the queries), the (B, N, 4) output written once
+    cells = sum(p.mask.numel() for p, _ in pair)
+    rows = sum(q.shape[0] * q.shape[1] for _, q in pair)
+    bd = bound((cells * 16 + rows * (12 + 16)) / 2, cells * 9 / 2)
+    sizes = " and ".join("x".join(map(str, p.mask.shape)) for p, _ in pair)
+    log(f"kernels: B4 {ms:.4f} ms per launch over {sizes} in turn ({eager_ms:.4f} ms issued from Python, "
+        f"plain {pms:.3f} ms, bound {bd[0]:.4f} ms by {bd[1]}) on {torch.cuda.get_device_name(0)}")
+    return dict(name="nn_select", route="cuda", source="mola_lidar_odometry_tpu_torch/csrc/match.cu",
+                replaces="mola_lidar_odometry_tpu/ops/pallas_match.py:109", max_abs_err=err, ms=ms,
+                plain_ms=pms, bound_ms=bd[0], bound_by=bd[1], library_ms=None, wrapper=pm.nn_select)
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main path — the B=8 fleet over the bench's scans
+# phases 4 and 5: the two paths — the B=8 fleet over the bench's scans
 # ---------------------------------------------------------------------------
 
 
@@ -350,13 +470,17 @@ def profile_step(fstep, carry, scan):
     n_kernels = sum(e.count for e in evs)
     log(f"profile: last step {wall:.2f} ms wall (profiled), device busy {busy:.3f} ms "
         f"({100 * busy / wall:.1f}%), {n_kernels} device kernels/copies")
-    for e in sorted(evs, key=dev_us, reverse=True)[:12]:
+    ranked = sorted(evs, key=dev_us, reverse=True)
+    own = ("capture_kernel", "align_kernel", "nn_select_kernel")  # the port's kernels, wherever they rank
+    for e in ranked[:12] + [e for e in ranked[12:] if any(k in e.key for k in own)]:
         log(f"profile:   {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
     return carry, out
 
 
-def phase_main_path(dev, recs):
-    """Step the fleet through the scans on the kernels; returns scans/s."""
+def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names):
+    """Step the B=8 fleet of ``pipeline`` through ``scans`` on the kernels
+    with every launch count set to 0 just before and read just after;
+    returns (scans/s, launches of this path per kernel name)."""
     import torch
 
     from mola_lidar_odometry_tpu_torch.models.spec import spec_from_yaml
@@ -364,20 +488,19 @@ def phase_main_path(dev, recs):
     from mola_lidar_odometry_tpu_torch.parallel import batch as pb
     from mola_lidar_odometry_tpu_torch.utils.config import load_yaml_file
 
-    t0 = time.time()
-    scans, traj = bench_scans(N_SCANS)
-    log(f"main: simulated {N_SCANS} scans of {len(scans[0][0])} rays in {time.time() - t0:.1f} s (host)")
-    cfg = load_yaml_file(os.path.join(HERE, "pipelines", "lidar3d-default.yaml"), env={})
-    spec = spec_from_yaml(cfg, kf_ring_capacity=256, **SIZING)
+    n_scans = len(scans)
+    cfg = load_yaml_file(os.path.join(HERE, "pipelines", pipeline), env={})
+    spec = spec_from_yaml(cfg, kf_ring_capacity=256, **sizing)
     fstep = pb.make_fleet_step(spec)
     seq = [pb.pack_scans(spec, [s] * BATCH, [traj.stamps[k]] * BATCH, device=dev) for k, s in enumerate(scans)]
     carry = pb.init_fleet_carry(spec, BATCH, device=dev)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     for r in recs:
         r["wrapper"].launches = 0
     outs, secs = [], []
-    for k in range(N_SCANS - 1):
+    for k in range(n_scans - 1):
         t1 = time.time()
         carry, out = fstep(carry, seq[k])
         torch.cuda.synchronize()
@@ -385,43 +508,75 @@ def phase_main_path(dev, recs):
         outs.append(out)
     carry, out = profile_step(fstep, carry, seq[-1])  # the last frame, under the profiler
     outs.append(out)
-    for r in recs:
-        r["launches"] = r.pop("wrapper").launches
+    launches = {r["name"]: r["wrapper"].launches for r in recs}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     q = torch.stack([o.quality for o in outs]).cpu().numpy()
+    accepted = torch.stack([o.accepted for o in outs]).cpu().numpy()
     nicp = torch.stack([o.n_icp_layer for o in outs]).cpu().numpy()
     nmap = torch.stack([o.n_map_layer for o in outs]).cpu().numpy()
     drops = int(torch.stack([o.map_collision_drops for o in outs]).sum())
     iters = torch.stack([o.iterations for o in outs]).cpu().numpy()
+    corr = int(torch.stack([o.corrections for o in outs]).sum())
     G = lambda k: se3.Pose(torch.tensor(traj.R[k], dtype=torch.float32), torch.tensor(traj.t[k], dtype=torch.float32))  # noqa: E731
     est = se3.Pose(carry.pose_R[0].cpu(), carry.pose_t[0].cpu())
-    gt_err = float(torch.linalg.norm(se3.se3_log(se3.relative(se3.relative(G(0), G(N_SCANS - 1)), est))))
-    icp_cap = SIZING["layer_capacities"]["decimated_for_icp"]
-    map_cap = SIZING["layer_capacities"]["decimated_for_map"]
+    gt_err = float(torch.linalg.norm(se3.se3_log(se3.relative(se3.relative(G(0), G(n_scans - 1)), est))))
+    icp_cap = sizing["layer_capacities"][spec.icp_local_layer]
+    map_cap = sizing["layer_capacities"][spec.map_inserts[0].input_layer]
     warm = 2  # frame 0 seeds the map, frame 1 is the first ICP on it
     sps = BATCH * len(secs[warm:]) / sum(secs[warm:])
     card = torch.cuda.get_device_name(0)
-    log(f"main: per-step seconds {[round(s, 4) for s in secs]}")
-    log(f"main: mean quality (frames > 0) {q[1:].mean():.4f}; iterations per frame {iters[:, 0].tolist()}; "
-        f"final-pose GT error {gt_err:.4f}; icp layer max {int(nicp.max())}/{icp_cap}; "
-        f"map layer max {int(nmap.max())}/{map_cap}; collision drops {drops}/{int(nmap.sum())}")
-    log(f"main: {sps:.2f} scans/s over frames {warm}..{len(secs) - 1} (B={BATCH}) on {card}")
-    log("main: launches " + ", ".join(f"{r['name']}={r['launches']}" for r in recs))
+    log(f"{tag}: per-step seconds {[round(s, 4) for s in secs]}")
+    log(f"{tag}: mean quality (frames > 0) {q[1:].mean():.4f}; iterations per frame {iters[:, 0].tolist()}; "
+        f"twist corrections {corr}; final-pose GT error {gt_err:.4f}; icp layer max {int(nicp.max())}/{icp_cap}; "
+        f"map layer max {int(nmap.max())}/{map_cap}; collision drops {drops}/{int(nmap.sum())} "
+        f"over {len(map_names)} map(s)")
+    log(f"{tag}: {sps:.2f} scans/s over frames {warm}..{len(secs) - 1} (B={BATCH}) on {card}; "
+        f"peak device memory {peak_gb:.3f} GB")
+    log(f"{tag}: launches " + ", ".join(f"{k}={v} ({v / n_scans:.2f}/step)" for k, v in launches.items()))
     failures = []
-    if not q[1:].mean() > 0.9:
-        failures.append(f"mean quality {q[1:].mean():.3f} <= 0.9")
-    if not gt_err < 0.20:
-        failures.append(f"final-pose GT error {gt_err:.3f} >= 0.20")
+    if not accepted[1:].all():
+        failures.append(f"frames not accepted: {np.argwhere(~accepted).tolist()}")
+    if not q[1:].mean() > guards["min_mean_quality"]:
+        failures.append(f"mean quality {q[1:].mean():.3f} <= {guards['min_mean_quality']}")
+    if not gt_err < guards["max_gt_error"]:
+        failures.append(f"final-pose GT error {gt_err:.3f} >= {guards['max_gt_error']}")
     if not nicp.max() < icp_cap:
-        failures.append(f"decimated_for_icp saturated ({int(nicp.max())})")
+        failures.append(f"{spec.icp_local_layer} saturated ({int(nicp.max())})")
     if not nmap.max() < map_cap:
-        failures.append(f"decimated_for_map saturated ({int(nmap.max())})")
-    if drops > 1e-3 * nmap.sum():
+        failures.append(f"{spec.map_inserts[0].input_layer} saturated ({int(nmap.max())})")
+    if drops > 1e-3 * nmap.sum():  # the drops of every map against one map's points: stricter than per map
         failures.append(f"collision drops {drops} > 0.1% of {int(nmap.sum())}")
-    failures += [f"{r['name']} never launched on the main path" for r in recs if r["launches"] <= 0]
+    if sorted(carry.maps) != sorted(map_names):
+        failures.append(f"map layers {sorted(carry.maps)} != {sorted(map_names)}")
+    failures += [f"{k} never launched on the {tag} path" for k in guards["kernels"] if launches[k] <= 0]
     if failures:
-        raise AssertionError("; ".join(failures))
-    return sps
+        raise AssertionError(f"{tag}: " + "; ".join(failures))
+    return sps, launches
+
+
+def phase_paths(dev, recs):
+    """Phases 4 and 5 over one simulated sequence; fills ``launches`` of every
+    record with the sum over both paths."""
+    t0 = time.time()
+    scans, traj = bench_scans(N_SCANS)
+    log(f"main: simulated {N_SCANS} scans of {len(scans[0][0])} rays in {time.time() - t0:.1f} s (host)")
+    _, main_l = run_fleet(
+        dev, recs, "main", "lidar3d-default.yaml", SIZING, scans, traj,
+        dict(min_mean_quality=0.9, max_gt_error=0.20,
+             kernels=("capture_planar", "capture_planar_reselect", "align_fused")),
+        ("localmap",),
+    )
+    _, dual_l = run_fleet(
+        dev, recs, "dual-map", os.path.join("extras", "lidar3d-dual-map.yaml"), DUALMAP_SIZING,
+        scans[:DUALMAP_SCANS], traj, dict(DUALMAP_GUARDS, kernels=("nn_select",)), ("localmap", "localmap_far"),
+    )
+    for r in recs:
+        r["launches"] = main_l[r["name"]] + dual_l[r["name"]]
+        del r["wrapper"]
+    never = [r["name"] for r in recs if r["launches"] <= 0]
+    if never:
+        raise AssertionError(f"kernels never launched on either path: {never}")
 
 
 def main():
@@ -432,7 +587,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     recs = phase_kernels("cuda")
-    phase_main_path("cuda", recs)
+    recs.append(phase_kernel_match("cuda"))
+    phase_paths("cuda", recs)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}), flush=True)

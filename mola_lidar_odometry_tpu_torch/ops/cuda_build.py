@@ -22,11 +22,12 @@ from typing import Dict
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-# Per-source flags.  The capture kernel must reproduce its plain twin bit
-# for bit, so FMA contraction is off in that file.
+# Per-source flags.  The capture and match kernels must reproduce their plain
+# twins bit for bit, so FMA contraction is off in those files.
 _FLAGS = {
     "capture": ["-fmad=false"],
     "align": [],
+    "match": ["-fmad=false"],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,10 +1,10 @@
-"""Local-map layer definitions and the operations the main path applies.
+"""Local-map layer definitions and the operations the step and ICP apply.
 
 Port of the voxel branch of ``mola_lidar_odometry_tpu/ops/maps.py``.  Point
 map classes (``HashedVoxelPointCloud`` and the plain point layers it serves)
-map to :class:`~.voxel_hash.VoxelHashMap`; the NDT and occupancy classes
-raise ``NotImplementedError`` until ROADMAP queue A's "other pipeline
-families" item ports them.
+map to :class:`~.voxel_hash.VoxelHashMap`; the NDT and occupancy classes and
+point-to-plane matching raise ``NotImplementedError`` until ROADMAP queue
+A's "other pipeline families" item ports them.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from mola_lidar_odometry_tpu_torch.ops import voxel_hash
+from mola_lidar_odometry_tpu_torch.ops import pallas_match, voxel_hash
 from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud
 from mola_lidar_odometry_tpu_torch.utils.expr import Expr, as_expr
 
@@ -101,3 +101,32 @@ def set_voxel_size(state, voxel_size):
     _check(state)
     vs = torch.as_tensor(voxel_size, dtype=torch.float32, device=state.data.device)
     return state._replace(voxel_size=vs.expand(state.data.shape[0]).contiguous())
+
+
+def capture(state, queries, neighbors: int = 27, per_voxel_nn: bool = False):
+    """Gather the neighbourhood candidate set once (``voxel_hash.capture``)."""
+    _check(state)
+    return voxel_hash.capture(state, queries, neighbors, per_voxel_nn)
+
+
+def match_p2p(candset, queries, valid):
+    """Nearest cached candidate: ``(tgt, d2, found)``.  A planar candidate
+    set goes through kernel B4 (``pallas_match.nn_select``)."""
+    if isinstance(candset, voxel_hash.CandSet):
+        return voxel_hash.nn_from(candset, queries, valid)
+    if isinstance(candset, pallas_match.PlanarCands):
+        tgt, d2 = pallas_match.nn_select(candset, queries)
+        found = valid & (d2 < 1e37)
+        return tgt, torch.where(found, d2, torch.inf), found
+    raise TypeError(type(candset))
+
+
+def match_p2p2(candset, queries, valid):
+    """Two nearest cached candidates (``pairingsPerPoint: 2``)."""
+    if isinstance(candset, voxel_hash.CandSet):
+        return voxel_hash.nn2_from(candset, queries, valid)
+    raise TypeError(f"pairingsPerPoint=2 unsupported for {type(candset)}")
+
+
+def match_p2pl(candset, queries, valid, **_):
+    raise _not_ported("point-to-plane matching (Matcher_Point2Plane)")

@@ -1,7 +1,8 @@
 """Device-resident sliding hash-voxel point map, batched over the fleet.
 
 Port of the main-path subset of ``mola_lidar_odometry_tpu/ops/voxel_hash.py``
-(the insert, the rolling-slab prune and the per-voxel capture).  The table
+(the insert, the rolling-slab prune, the neighbourhood capture and the
+nearest-candidate selects ``nn_from``/``nn2_from`` over a captured set).  The table
 keeps the JAX layout word for word, so the two packages' tables compare
 directly:
 
@@ -437,3 +438,46 @@ def capture(m: VoxelHashMap, queries: torch.Tensor, neighbors: int = 27, per_vox
     p1, m1, oh1 = pick(d2)
     p2, m2, _ = pick(torch.where(oh1, big, d2))
     return CandSet(torch.cat([p1, p2], dim=2), torch.cat([m1, m2], dim=2))
+
+
+def _masked_d2(cand: CandSet, queries: torch.Tensor) -> torch.Tensor:
+    d2 = torch.sum((cand.pts - queries[:, :, None, :]) ** 2, dim=-1)
+    return torch.where(cand.mask, d2, torch.inf)
+
+
+def _first_min(d2: torch.Tensor, exclude: torch.Tensor = None):
+    """Row minimum and the lowest index attaining it (``argmin``'s choice in
+    the JAX package; ``torch.argmin`` does not promise it), skipping the
+    ``exclude`` index (B, N, 1) when given."""
+    C = d2.shape[-1]
+    lane = torch.arange(C, device=d2.device)
+    if exclude is not None:
+        d2 = torch.where(lane == exclude, torch.inf, d2)
+    dmin = torch.amin(d2, dim=-1, keepdim=True)
+    hit = d2 <= dmin
+    if exclude is not None:
+        hit = hit & (lane != exclude)
+    return dmin, torch.amin(torch.where(hit, lane, C), dim=-1, keepdim=True)
+
+
+def nn_from(cand: CandSet, queries: torch.Tensor, valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Nearest candidate per query: ``(tgt (B, N, 3), d2 (B, N), found)``."""
+    dmin, j = _first_min(_masked_d2(cand, queries))
+    pmin = torch.gather(cand.pts, 2, j[..., None].expand(-1, -1, -1, 3))[:, :, 0]
+    dmin = dmin[..., 0]
+    found = valid & torch.isfinite(dmin)
+    return pmin, torch.where(found, dmin, torch.inf), found
+
+
+def nn2_from(cand: CandSet, queries: torch.Tensor, valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Two nearest candidates per query (``pairingsPerPoint: 2``):
+    ``(tgt (B, N, 2, 3), d2 (B, N, 2), found (B, N, 2))``, nearest first,
+    equal distances in index order (the JAX package's ``top_k``)."""
+    d2 = _masked_d2(cand, queries)
+    d1, j1 = _first_min(d2)
+    d2nd, j2 = _first_min(d2, exclude=j1)
+    ti = torch.cat([j1, j2], dim=-1)  # (B, N, 2)
+    best_pt = torch.gather(cand.pts, 2, ti[..., None].expand(-1, -1, -1, 3))
+    best_d2 = torch.cat([d1, d2nd], dim=-1)
+    found = valid[..., None] & torch.isfinite(best_d2)
+    return best_pt, torch.where(found, best_d2, torch.inf), found

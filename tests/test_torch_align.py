@@ -148,12 +148,18 @@ def test_icp_align_matches_jax(scene, monkeypatch, max_iterations):
 
 
 def test_non_fused_config_raises(scene):
+    """A configuration outside the fused path (here a Horn stage) no longer
+    raises: it runs the generic loop.  What still raises is point-to-plane
+    matching, naming its ROADMAP item."""
     jm, tm, local, valid, *_ = scene
     _, tcfg = _cfgs(30)
-    tcfg = dataclasses.replace(tcfg, horn=ticp.HornCfg())
     T = torch.from_numpy
-    with pytest.raises(NotImplementedError, match="generic align loop"):
-        ticp.align(
-            {"localmap": tm}, {"icp": (T(np.stack([local] * B)), T(np.stack([valid] * B)))},
-            TPose.identity((B,), device="cpu"), TPrior.none(B, device="cpu"), tcfg, {},
-        )
+    args = (
+        {"localmap": tm}, {"icp": (T(np.stack([local] * B)), T(np.stack([valid] * B)))},
+        TPose.identity((B,), device="cpu"), TPrior.none(B, device="cpu"),
+    )
+    res = ticp.align(*args, dataclasses.replace(tcfg, horn=ticp.HornCfg()), {})
+    assert float(res.quality.min()) > 0.9 and not res.hook_stop.any()
+    p2pl = dataclasses.replace(tcfg, matchers=(ticp.MatcherCfg(kind="point2plane", local_layer="icp", threshold=TExpr(THR)),))
+    with pytest.raises(NotImplementedError, match="other pipeline families"):
+        ticp.align(*args, p2pl, {})

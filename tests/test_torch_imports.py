@@ -27,7 +27,7 @@ def test_every_port_module_is_listed():
     mods = _port_modules()
     for expected in (
         "ops.se3", "ops.filters", "ops.voxel_hash", "ops.pallas_capture", "ops.pallas_icp",
-        "ops.icp", "models.step", "parallel.batch", "utils.carry_io", "utils.sim",
+        "ops.pallas_match", "ops.solver", "ops.maps", "ops.icp", "models.step", "parallel.batch", "utils.carry_io", "utils.sim",
     ):
         assert f"{port.__name__}.{expected}" in mods
 

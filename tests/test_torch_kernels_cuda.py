@@ -8,14 +8,14 @@ inside the test).  On a machine with a GPU and nvcc:
 (``--noconftest``: tests/conftest.py configures JAX, which the GPU machine
 need not have; this file imports nothing of it.)
 
-B1/B2 must equal their twins bit for bit; B3 must agree within 3e-3 on R
+B1/B2/B4 must equal their twins bit for bit; B3 must agree within 3e-3 on R
 and t, one iteration and 0.02 quality (reduction order differs)."""
 
 import numpy as np
 import pytest
 import torch
 
-from mola_lidar_odometry_tpu_torch.ops import pallas_capture as pc, pallas_icp as pi, se3
+from mola_lidar_odometry_tpu_torch.ops import pallas_capture as pc, pallas_icp as pi, pallas_match as pm, se3
 from mola_lidar_odometry_tpu_torch.ops import voxel_hash as vh
 from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud
 
@@ -97,6 +97,37 @@ def test_align_kernel_matches_plain(dev):
     _align_close(pi.align_fused(*args2, it0=ref1[2], **kw), pi.align_fused_plain(*args2, it0=ref1[2], **kw))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbr,n", [(8, 700), (27, 700), (27, 333), (1, 31)])
+def test_nn_select_kernel_bit_exact(dev, nbr, n):
+    """B4 on real captures (C = 2, 16 and 54; N not a multiple of 32),
+    queries moved off the capture pose so some have no candidate, plus exact
+    ties, a masked candidate 0 and rows with no candidate at all."""
+    m, q, valid = _scene(dev, n=n, seed=2)
+    planar = pm.to_planar(vh.capture(m, q, nbr, per_voxel_nn=True))
+    moved = (q * 1.2 + 0.3).contiguous()
+    before = pm.nn_select.launches
+    for queries in (q, moved):
+        got, ref = pm.nn_select(planar, queries), pm.nn_select_plain(planar, queries)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert pm.nn_select.launches == before + 2
+    rng = np.random.default_rng(5)
+    C = planar.mask.shape[-1]
+    cand = rng.integers(-6, 7, (B, n, C, 3)).astype(np.float32)
+    cand[cand == 0] = -0.0
+    mask = rng.random((B, n, C)) > 0.3
+    cand[:, :, C - 1] = cand[:, :, 0]  # ties between the first and the last candidate
+    mask[:, : n // 3] = False  # no candidate at all
+    mask[:, n // 3 : n // 2, 0] = False  # a masked candidate 0
+    syn = pm.to_planar(vh.CandSet(torch.from_numpy(cand).to(dev), torch.from_numpy(mask).to(dev)))
+    sq = torch.from_numpy(rng.integers(-3, 4, (B, n, 3)).astype(np.float32)).to(dev)
+    got, ref = pm.nn_select(syn, sq), pm.nn_select_plain(syn, sq)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert bool((got[1][:, : n // 3] == 3.4e38).all()) and not bool(torch.signbit(got[0][got[0] == 0]).any())
+    with pytest.raises(ValueError):
+        pm.nn_select(syn, sq.double())
+
+
 def test_cpu_tensors_take_the_plain_twin():
     """On the CPU the wrappers run their twins and count no launch."""
     m, q, valid = _scene("cpu")
@@ -105,3 +136,8 @@ def test_cpu_tensors_take_the_plain_twin():
     ref = pc.capture_planar_plain(m.data, m.voxel_size, m.epoch, q, 8, K=m.K, stride=m.stride, valid=valid)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     assert pc.capture_planar.launches == before
+    planar = pm.to_planar(vh.capture(m, q, 8, per_voxel_nn=True))
+    before = pm.nn_select.launches
+    got, ref = pm.nn_select(planar, q), pm.nn_select_plain(planar, q)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert pm.nn_select.launches == before
