@@ -10,7 +10,10 @@ Phases, one line of numbers each:
   2. build   — compiles the port's CUDA kernels from csrc/ (one nvcc per
                source, all at once) and reports the seconds;
   3. kernels — runs every kernel against its plain PyTorch twin on the card.
-               B1, B2 and B3 at bench shapes (B=8 instances,
+               First the design parameters of B1 and B3 (launch shape,
+               shared memory, B3's cluster size and plane branch, registers
+               and spills from nvcc's -Xptxas -v report).  B1, B2 and B3 at
+               bench shapes (B=8 instances,
                3072 ICP points, 8 probes, 16 candidates, a 65536-slot K=20
                map filled by the port's insert) against their plain PyTorch
                twins on the card, in the order and with the arguments of one
@@ -18,7 +21,12 @@ Phases, one line of numbers each:
                answer, phase 1 from iteration 0, reselect, phase 2 resuming
                the iteration count, a weighted prior, the twist hook firing
                for two instances): B1/B2 must match bit for bit, B3 within
-               3e-3 on R and t, one iteration and 0.02 quality.  B4
+               3e-3 on R and t, one iteration and 0.02 quality.  Device
+               times come from CUDA-graph replays: B1 and B3 alone
+               (arguments packed once), B2 as its wrapper call; the whole
+               wrapper calls from CUDA graphs and issued from Python are
+               printed beside them, and B3 also per iteration of its slowest
+               instance.  B4
                (nn_select) at the dual-map path's shapes (B=8, the sized 3072
                and 6656 ICP points, C=54 candidates from a 27-probe per-voxel
                capture of K=20 and K=10 maps filled by the port's insert, some
@@ -210,20 +218,19 @@ def check_align(name, got, ref):
     return err
 
 
-def phase_kernels(dev):
-    """Hold each kernel against its plain twin on the card, called as one
-    align of the main path calls them (``ops/icp.py::_align_fused_call``);
-    returns the per-kernel records (launch counts come from the main path)."""
+def align_case(dev, m, local, valid):
+    """The four kernel calls of one main-path align
+    (``ops/icp.py::_align_fused_call``) at phase 3's inputs: B1 at an entry
+    pose off the answer, B3 phase 1 from iteration 0, B2 at the settled pose,
+    B3 phase 2 resuming the iteration count.  Each call's inputs come from
+    the plain twins' outputs; returns the arguments and those outputs."""
     import torch
 
     from mola_lidar_odometry_tpu_torch.ops import pallas_capture as pc, pallas_icp as pi, se3
-    from mola_lidar_odometry_tpu_torch.ops.filters import voxel_coords, voxel_hash
     from mola_lidar_odometry_tpu_torch.ops.icp import _FUSED_REFRESH_AT
-    from mola_lidar_odometry_tpu_torch.ops.voxel_hash import neighbor_coords
 
-    m, local, valid = kernel_inputs(dev)
-    B, N = valid.shape
-    P, npad, C = 8, 3072, 16
+    B = valid.shape[0]
+    P = 8
     # The scan's true pose is the identity (up to the 5 cm point noise).  The
     # align enters 7-13 cm and ~0.4 deg away from it; the last two instances
     # enter 28 cm away, so the twist hook (0.15 m, 0.75 deg from the entry
@@ -242,12 +249,98 @@ def phase_kernels(dev):
     statics = dict(min_abs_step_trans=1e-4, min_abs_step_rot=5e-5, hook_min_trans=0.15,
                    hook_min_rot=0.0131, gn_inner=2, hook_ref_R=entry.R, hook_ref_t=entry.t)
     zero = torch.zeros((B,), dtype=torch.int32, device=dev)
-
-    # B1 at the entry pose
+    c = dict(P=P, entry=entry, info=info, budget=budget, maxit=maxit, gn_inner=statics["gn_inner"])
     q0 = se3.transform(entry, local).contiguous()
-    args1 = (m.data, m.voxel_size, m.epoch, q0, P)
-    kw1 = dict(K=m.K, stride=m.stride, valid=valid, return_rows=True)
-    ref1 = pc.capture_planar_plain(*args1, **kw1)
+    c["q0"] = q0
+    c["args1"] = (m.data, m.voxel_size, m.epoch, q0, P)
+    c["kw1"] = dict(K=m.K, stride=m.stride, valid=valid, return_rows=True)
+    c["ref1"] = pc.capture_planar_plain(*c["args1"], **c["kw1"])
+    b1 = torch.clamp(budget, max=_FUSED_REFRESH_AT)
+    c["args3a"] = (tuple(c["ref1"][:4]), local, valid, entry.R, entry.t, prior.R, prior.t, info, thr, kc, b1)
+    c["kw3a"] = dict(it0=zero, **statics)
+    c["ref3a"] = pi.align_fused_plain(*c["args3a"], **c["kw3a"])
+    R1, t1, it1 = c["ref3a"][:3]
+    # B2 at the settled pose, keys from the entry-pose queries; then phase 2
+    # from phase 1's pose, it0 = it1, the remaining budget, the hook still
+    # measured from the entry pose
+    q1 = se3.transform(se3.Pose(R1, t1), local).contiguous()
+    c["args2"] = (c["ref1"][4], m.voxel_size, m.epoch, q1, q0, P)
+    c["kw2"] = dict(K=m.K, stride=m.stride, valid=valid)
+    c["ref2"] = pc.capture_planar_reselect_plain(*c["args2"], **c["kw2"])
+    c["args3b"] = (tuple(c["ref2"]), local, valid, R1, t1, prior.R, prior.t, info, thr, kc, budget - it1)
+    c["kw3b"] = dict(it0=it1, **statics)
+    c["ref3b"] = pi.align_fused_plain(*c["args3b"], **c["kw3b"])
+    return c
+
+
+def wrapper_graph_ms(c) -> dict:
+    """Device milliseconds per whole wrapper call of B1, B2 and B3 (argument
+    packing included; B3 per launch, the mean of its two phases) at the
+    inputs of :func:`align_case`, from CUDA-graph replays.  Only the public
+    wrappers are called, whose signatures every tree of the port shares, so
+    an earlier tree's kernels can be timed the same way: from the root of
+    that tree, load this file by its path and call this function (PERF.md
+    gives the command)."""
+    from mola_lidar_odometry_tpu_torch.ops import pallas_capture as pc, pallas_icp as pi
+
+    def both():
+        pi.align_fused(*c["args3a"], **c["kw3a"])
+        pi.align_fused(*c["args3b"], **c["kw3b"])
+
+    return {
+        "B1": cuda_graph_ms(lambda: pc.capture_planar(*c["args1"], **c["kw1"]), 20),
+        "B2": cuda_graph_ms(lambda: pc.capture_planar_reselect(*c["args2"], **c["kw2"]), 20),
+        "B3": cuda_graph_ms(both, 10) / 2,
+    }
+
+
+def ptxas_report(source: str, kernel: str) -> str:
+    """Registers and spills of each compiled entry whose name holds
+    ``kernel``, from nvcc's ``-Xptxas -v`` report of this run's build."""
+    from mola_lidar_odometry_tpu_torch.ops import cuda_build
+
+    out, entry, spill = [], None, ""
+    for line in cuda_build.build_log.get(source, "").splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.strip().split(",", 1)[1].strip()
+        elif "Used" in line and "registers" in line and entry and kernel in entry:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            rest = entry.split(kernel, 1)[1]  # "ILi4EE..." for a template instance
+            tag = f"<{rest[3:rest.index('E')]}>" if rest.startswith("ILi") else ""
+            out.append(f"{kernel}{tag}: {regs}, {spill}")
+            entry = None
+    return "; ".join(out) if out else "not built in this run"
+
+
+def phase_kernels(dev):
+    """Hold each kernel against its plain twin on the card, called as one
+    align of the main path calls them (``ops/icp.py::_align_fused_call``);
+    returns the per-kernel records (launch counts come from the main path)."""
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.ops import pallas_capture as pc, pallas_icp as pi
+    from mola_lidar_odometry_tpu_torch.ops.filters import voxel_coords, voxel_hash
+    from mola_lidar_odometry_tpu_torch.ops.voxel_hash import neighbor_coords
+
+    m, local, valid = kernel_inputs(dev)
+    B, N = valid.shape
+    c = align_case(dev, m, local, valid)
+    P, npad, C = c["P"], 3072, 2 * c["P"]
+    args1, kw1, args2, kw2 = c["args1"], c["kw1"], c["args2"], c["kw2"]
+    args3a, kw3a, args3b, kw3b = c["args3a"], c["kw3a"], c["args3b"], c["kw3b"]
+    ref1, ref3a, ref2, ref3b = c["ref1"], c["ref3a"], c["ref2"], c["ref3b"]
+    q0 = c["q0"]
+    geo1, geo3 = pc.capture_geometry(B, P, npad), pi.align_geometry(npad, C)
+    log(f"kernels: B1 design: one thread per (instance, probe, query), {geo1.threads} threads per block, "
+        f"grid {geo1.grid}, {geo1.smem_bytes} B static shared memory per block (32 staged rows per warp); "
+        f"{ptxas_report('capture', 'capture_gather_kernel')}")
+    log(f"kernels: B3 design: a cluster of {geo3.cluster} CTAs per instance ({B * geo3.cluster} CTAs), "
+        f"{geo3.threads} threads x {geo3.ppt} point(s) on a {geo3.slice}-point slice, {geo3.smem_bytes} B "
+        f"dynamic shared memory per CTA, planes read from {'shared' if geo3.planes_in_smem else 'global'} "
+        f"memory; {ptxas_report('align', 'align_kernel')}")
+
     got1 = pc.capture_planar(*args1, **kw1)
     torch.cuda.synchronize()
     for g, r, name in zip(got1, ref1, ("cx", "cy", "cz", "cm", "rows")):
@@ -258,20 +351,11 @@ def phase_kernels(dev):
     log(f"kernels: B1 bit-exact vs plain on {B}x{P}x{npad} probes (max |d| {err1}); {paired:.3f} "
         f"probed voxels with a candidate per valid query")
 
-    # B3 phase 1: from the entry pose, it0 = 0, at most 8 iterations
-    b1 = torch.clamp(budget, max=_FUSED_REFRESH_AT)
-    args3a = (tuple(ref1[:4]), local, valid, entry.R, entry.t, prior.R, prior.t, info, thr, kc, b1)
-    ref3a = pi.align_fused_plain(*args3a, it0=zero, **statics)
-    got3a = pi.align_fused(*args3a, it0=zero, **statics)
+    got3a = pi.align_fused(*args3a, **kw3a)
     torch.cuda.synchronize()
     err3 = check_align("B3 phase 1", got3a, ref3a)
-    R1, t1, it1, hook1 = ref3a[0], ref3a[1], ref3a[2], ref3a[3]
+    it1, hook1 = ref3a[2], ref3a[3]
 
-    # B2 at the settled pose, keys from the entry-pose queries
-    q1 = se3.transform(se3.Pose(R1, t1), local).contiguous()
-    args2 = (ref1[4], m.voxel_size, m.epoch, q1, q0, P)
-    kw2 = dict(K=m.K, stride=m.stride, valid=valid)
-    ref2 = pc.capture_planar_reselect_plain(*args2, **kw2)
     got2 = pc.capture_planar_reselect(*args2, **kw2)
     torch.cuda.synchronize()
     for g, r, name in zip(got2, ref2, ("cx", "cy", "cz", "cm")):
@@ -280,24 +364,21 @@ def phase_kernels(dev):
     err2 = max_err(got2, ref2)
     log(f"kernels: B2 bit-exact vs plain (max |d| {err2})")
 
-    # B3 phase 2: from phase 1's pose, it0 = it1, the remaining budget, the
-    # hook still measured from the entry pose
-    args3b = (tuple(ref2), local, valid, R1, t1, prior.R, prior.t, info, thr, kc, budget - it1)
-    ref3b = pi.align_fused_plain(*args3b, it0=it1, **statics)
-    got3b = pi.align_fused(*args3b, it0=it1, **statics)
+    got3b = pi.align_fused(*args3b, **kw3b)
     torch.cuda.synchronize()
     err3 = max(err3, check_align("B3 phase 2", got3b, ref3b))
 
     # what the comparison can see: the correction each instance made, the
     # prior's pull, and both exits of the loop
+    entry, budget, t1 = c["entry"], c["budget"], ref3a[1]
     need2 = ~hook1 & (budget > it1)
     t_fin = torch.where(need2[:, None], ref3b[1], t1)
     corr_t = (t_fin - entry.t).norm(dim=-1)
-    noprior = pi.align_fused(*args3a[:7], torch.zeros_like(info), *args3a[8:], it0=zero, **statics)
+    noprior = pi.align_fused(*args3a[:7], torch.zeros_like(c["info"]), *args3a[8:], **kw3a)
     pull = float((noprior[1] - got3a[1]).norm(dim=-1).min())
     log(f"kernels: B3 within tolerance of plain in both phases: max |dR|,|dt| {err3:.3e}; "
         f"iterations phase 1 {it1.tolist()}, phase 2 {ref3b[2].tolist()}; hook {hook1.tolist()}; "
-        f"correction |dt| {[round(float(c), 4) for c in corr_t]} m; prior pull >= {pull:.4f} m")
+        f"correction |dt| {[round(float(x), 4) for x in corr_t]} m; prior pull >= {pull:.4f} m")
     if not (bool(hook1[B - 2:].all()) and bool(need2[: B - 2].all())):
         raise AssertionError("B3 check: the hook must stop the far entries and only them")
     if not (float(corr_t[: B - 2].min()) > 10 * B3_TOL["pose"] and pull > 3 * B3_TOL["pose"]):
@@ -306,13 +387,24 @@ def phase_kernels(dev):
     # times at these shapes (plain twins once or twice: they are slow); B3
     # per launch, as the mean of the two phases
     def both(fn):
-        return lambda: (fn(*args3a, it0=zero, **statics), fn(*args3b, it0=it1, **statics))
+        return lambda: (fn(*args3a, **kw3a), fn(*args3b, **kw3b))
 
-    ms1 = cuda_ms(lambda: pc.capture_planar(*args1, **kw1), 20, 3)
+    # Device times from CUDA-graph replays (the host's cost of issuing a
+    # launch from Python, which varies between calls, is not counted): B1
+    # and B3 alone (arguments checked and packed once), B2 as its wrapper
+    # call.  The whole wrapper calls are timed from CUDA graphs too (the
+    # measure that compares with earlier trees) and issued from Python (the
+    # host's share).
+    launch1 = pc.capture_launcher(*args1, **kw1)[0]
+    launch3 = [pi.align_launcher(geo3, *a, **k)[0] for a, k in ((args3a, kw3a), (args3b, kw3b))]
+    ms1 = cuda_graph_ms(launch1, 20)
+    call_ms1 = cuda_ms(lambda: pc.capture_planar(*args1, **kw1), 20, 3)
     pms1 = cuda_ms(lambda: pc.capture_planar_plain(*args1, **kw1), 2)
-    ms2 = cuda_ms(lambda: pc.capture_planar_reselect(*args2, **kw2), 20, 3)
+    wms = wrapper_graph_ms(c)
+    ms2 = wms["B2"]
     pms2 = cuda_ms(lambda: pc.capture_planar_reselect_plain(*args2, **kw2), 2)
-    ms3 = cuda_ms(both(pi.align_fused), 10, 2) / 2
+    ms3 = cuda_graph_ms(lambda: [launch() for launch in launch3], 10) / 2
+    call_ms3 = cuda_ms(both(pi.align_fused), 10, 2) / 2
     pms3 = cuda_ms(both(pi.align_fused_plain), 1, 0) / 2
 
     # bounds from this run's inputs: bytes each input read once / each output
@@ -332,13 +424,20 @@ def phase_kernels(dev):
     b1 = bound(uniq_rows * 512 + q_bytes + planes + rows, flops_sel)
     b2 = bound(rows + 2 * q_bytes + planes, flops_sel)
     it_total = int(ref3a[2].sum() + ref3b[2].sum() + 2 * B)  # + each launch's quality pass
-    flops3 = it_total * npad * (C * 9 + 18 + statics["gn_inner"] * 45)
-    b3 = bound(2 * (B * N * 13 + planes + 2 * B * maxit * 4 + B * 16 * 4), flops3)
+    flops3 = it_total * npad * (C * 9 + 18 + c["gn_inner"] * 45)
+    b3 = bound(2 * (B * N * 13 + planes + 2 * B * c["maxit"] * 4 + B * 16 * 4), flops3)
     b3 = (b3[0] / 2, b3[1])
     card = torch.cuda.get_device_name(0)
     for name, ms, pms, bd in (("B1", ms1, pms1, b1), ("B2", ms2, pms2, b2), ("B3", ms3, pms3, b3)):
         log(f"kernels: {name} {ms:.4f} ms (plain {pms:.3f} ms, bound {bd[0]:.4f} ms by {bd[1]}) "
             f"on {card}")
+    # a launch lasts as long as its slowest instance: per iteration of that one
+    it_max = int(ref3a[2].max()) + int(ref3b[2].max())
+    log(f"kernels: B3 {ms3:.4f} ms per launch, {2 * ms3 / it_max * 1e3:.2f} us per iteration "
+        f"({it_max} iterations of the slowest instance over the two phases, quality passes included)")
+    log(f"kernels: whole wrapper calls (kernel + argument packing) from CUDA graphs: B1 {wms['B1']:.4f} ms, "
+        f"B2 {wms['B2']:.4f} ms, B3 {wms['B3']:.4f} ms per launch; issued from Python: B1 {call_ms1:.4f} ms, "
+        f"B3 {call_ms3:.4f} ms per launch")
     recs = [
         dict(name="capture_planar", route="cuda", source="mola_lidar_odometry_tpu_torch/csrc/capture.cu",
              replaces="mola_lidar_odometry_tpu/ops/pallas_capture.py:257", max_abs_err=err1,
@@ -471,7 +570,7 @@ def profile_step(fstep, carry, scan):
     log(f"profile: last step {wall:.2f} ms wall (profiled), device busy {busy:.3f} ms "
         f"({100 * busy / wall:.1f}%), {n_kernels} device kernels/copies")
     ranked = sorted(evs, key=dev_us, reverse=True)
-    own = ("capture_kernel", "align_kernel", "nn_select_kernel")  # the port's kernels, wherever they rank
+    own = ("capture_gather_kernel", "reselect_kernel", "align_kernel", "nn_select_kernel")  # wherever they rank
     for e in ranked[:12] + [e for e in ranked[12:] if any(k in e.key for k in own)]:
         log(f"profile:   {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
     return carry, out

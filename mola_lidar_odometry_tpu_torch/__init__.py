@@ -7,9 +7,11 @@ found by name.  Differences that hold everywhere:
   * state is ``NamedTuple``s of tensors with an explicit leading fleet
     dimension ``B`` instead of ``vmap``;
   * entry points take a ``device`` argument that defaults to ``"cuda"``;
-  * the three Pallas kernels of the main path are hand-written CUDA for
-    Hopper (``csrc/``), each with a plain PyTorch twin in the same module that
-    runs only for CPU tensors.
+  * the JAX package's four Pallas kernels, on two paths (capture, reselect
+    and the fused align on the lidar3d-default step; the nearest-candidate
+    select on the generic align loop), are hand-written CUDA for Hopper
+    (``csrc/``), each with a plain PyTorch twin in the same module that runs
+    only for CPU tensors.
 
 Nothing here imports ``jax`` or the JAX package.
 """

@@ -8,20 +8,22 @@ against the probe voxel, and keep the two nearest (first-min tie-break).
 Results come out planar, ``(B, 2P, npad)`` per coordinate plane, top-1 block
 over top-2 block — the layout the align kernel (B3) reads.
 
-One CUDA kernel (``csrc/capture.cu``) serves both, with a ``reselect`` flag:
+Two CUDA kernels (``csrc/capture.cu``), both bound by bytes:
 
-  * one warp per (instance, probe, query); the warp reads the 512-byte
-    bucket row with one 16-byte load per lane (the row gather that the JAX
-    package left to XLA is fused in), optionally writes it out for B2,
-    shuffles the matched way's K point words to K lanes, and reduces the
-    top-2 with two warp argmin butterflies;
-  * bound by bytes: B1 reads and writes B·P·npad rows of 512 B (about
-    100 MB each at the bench shape), B2 reads them back; the arithmetic is
-    a few dozen operations per row;
+  * B1 (``capture_gather_kernel``) runs one thread per (instance, probe,
+    query) for the arithmetic; each thread moves its query's 512-byte bucket
+    row into shared memory and on to the rows for B2 with two TMA bulk
+    copies (the row gather that the JAX package left to XLA is fused in),
+    and selects its own top-2 with two serial scans (:func:`capture_geometry`
+    gives the launch shape).  It reads the distinct probed rows and writes
+    B·P·npad rows of 512 B (about 100 MB at the bench shape);
+  * B2 (``reselect_kernel``) runs one warp per (instance, probe, query) on
+    the rows B1 wrote: one 16-byte load per lane, the matched way's K point
+    words shuffled to K lanes, two warp argmin butterflies;
   * FMA contraction is off in that file, so the key derivation
     ``floor(q * inv_vs)``, the octant test ``q * inv_vs - (b + 0.5)`` and the
     dequantization ``(e + (p + 0.5) / 1024) * vs`` round exactly as in the
-    plain twin: kernel and twin agree bit for bit.
+    plain twin: kernels and twin agree bit for bit.
 
 Like the JAX package, B1 picks the bucket ROW from ``floor(q / vs)`` (the
 XLA gather's voxel coords) but derives the EXPECTED key inside the kernel
@@ -35,7 +37,7 @@ tensors and run the plain twin (``*_plain``) for CPU tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -207,47 +209,48 @@ def capture_planar_reselect_plain(
 # ---------------------------------------------------------------------------
 
 
-def _launch(src, voxel_size, epoch, q_live, q_cap, valid, neighbors, K, stride, npad,
-            reselect, rows_out):
-    """Check the inputs and launch ``capture_kernel`` on the current stream;
-    ``src`` is the table (B1) or the B1 rows (B2)."""
-    B, n, _ = q_live.shape
-    P = neighbors  # one probe per neighbour voxel
+GATHER_WARPS = 2  # csrc/capture.cu kGatherWarps: warps per block of B1
+ROW_STRIDE_BYTES = 512 + 16  # a staged row and its 16 bytes of padding
+
+
+class CaptureGeometry(NamedTuple):
+    grid: Tuple[int, int, int]  # (query blocks, probes, instances)
+    threads: int  # per block; one query per thread
+    smem_bytes: int  # static shared memory per block: each warp's 32 staged rows
+
+
+def capture_geometry(B: int, P: int, npad: int) -> CaptureGeometry:
+    """Launch shape of kernel B1 (``capture_launch`` computes the same)."""
+    per_block = 32 * GATHER_WARPS
+    if P > 65535 or B > 65535:
+        raise ValueError(f"capture kernel: P={P}, B={B} exceed the grid's y/z limits")
+    return CaptureGeometry((-(-npad // per_block), P, B), per_block, per_block * ROW_STRIDE_BYTES)
+
+
+def _check(B, n, npad, neighbors, K, voxel_size, epoch, q_live, q_cap, valid, tensors):
+    """The checks both kernels share; returns ``valid`` as uint8 (or None)."""
     dev = q_live.device
-    for name, t, dt in (
-        ("table/rows", src, torch.int32), ("voxel_size", voxel_size, torch.float32),
-        ("epoch", epoch, torch.int32), ("queries", q_live, torch.float32),
-        ("queries_cap", q_cap, torch.float32),
+    for name, t, dt in tensors + (
+        ("voxel_size", voxel_size, torch.float32), ("epoch", epoch, torch.int32),
+        ("queries", q_live, torch.float32), ("queries_cap", q_cap, torch.float32),
     ):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"capture kernel: {name} must be contiguous {dt} on {dev}")
     if K > 32:
-        raise ValueError(f"capture kernel: K={K} > 32 points per voxel (one warp lane each)")
+        raise ValueError(f"capture kernel: K={K} > 32 points per voxel")
     if neighbors not in (1, 4, 8, 27) or npad < n:
         raise ValueError(f"capture kernel: neighbors={neighbors}, npad={npad} < N={n}")
     if voxel_size.shape != (B,) or epoch.shape != (B,) or q_cap.shape != q_live.shape:
         raise ValueError("capture kernel: per-instance shapes disagree")
-    valid_u8 = None
-    if valid is not None:
-        if valid.shape != (B, n) or valid.device != dev:
-            raise ValueError("capture kernel: valid must be (B, N) on the queries' device")
-        valid_u8 = valid.to(torch.uint8).contiguous()
-    inv_vs = (1.0 / voxel_size).contiguous()
-    planes = torch.empty((4, B, 2 * P, npad), dtype=torch.float32, device=dev)
-    fn = cuda_build.load("capture").capture_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    opt = lambda t: None if t is None else cuda_build.ptr(t)  # noqa: E731
-    err = fn(
-        cuda_build.ptr(src), cuda_build.ptr(voxel_size), cuda_build.ptr(inv_vs),
-        cuda_build.ptr(epoch), cuda_build.ptr(q_live), cuda_build.ptr(q_cap),
-        opt(valid_u8), opt(rows_out), *(cuda_build.ptr(pl) for pl in planes),
-        B, n, npad, P, neighbors, K, stride, 0 if reselect else src.shape[1],
-        int(reselect), int(valid is not None), cuda_build.stream_ptr(dev),
-    )
-    cuda_build.check(err, "capture_kernel")
-    return tuple(planes)
+    if valid is None:
+        return None
+    if valid.shape != (B, n) or valid.device != dev:
+        raise ValueError("capture kernel: valid must be (B, N) on the queries' device")
+    return valid.to(torch.uint8).contiguous()
+
+
+def _opt(t):
+    return None if t is None else cuda_build.ptr(t)
 
 
 def capture_planar(
@@ -259,19 +262,54 @@ def capture_planar(
         return capture_planar_plain(
             data, voxel_size, epoch, queries, neighbors, tile_q, K, stride, valid, return_rows
         )
+    launch, result = capture_launcher(data, voxel_size, epoch, queries, neighbors, tile_q, K, stride,
+                                      valid, return_rows)
+    launch()
+    capture_planar.launches += 1
+    return result()
+
+
+def capture_launcher(
+    data, voxel_size, epoch, queries, neighbors: int = 27, tile_q: int = 256, K: int = 20,
+    stride: int = 32, valid=None, return_rows: bool = False,
+):
+    """Check the inputs of kernel B1 and allocate its outputs once; returns
+    ``(launch, result)``: ``launch()`` runs ``capture_gather_kernel`` on the
+    current stream (it raises on a refused launch), ``result()`` returns the
+    outputs of the last launch as :func:`capture_planar` does."""
     _check_layout(K, stride)
     B, n, _ = queries.shape
     npad = _npad(n, tile_q)
     P = neighbors  # one probe per neighbour voxel
-    rows = (
-        torch.empty((B, P, npad, 128), dtype=torch.int32, device=queries.device) if return_rows else None
-    )
+    dev = queries.device
     if data.dim() != 3 or data.shape[2] != 128 or data.shape[0] != B:
         raise ValueError(f"capture kernel: table must be (B, rows, 128), got {tuple(data.shape)}")
-    planes = _launch(data, voxel_size, epoch, queries, queries, valid, neighbors, K, stride,
-                     npad, False, rows)
-    capture_planar.launches += 1
-    return planes + (rows,) if return_rows else planes
+    valid_u8 = _check(B, n, npad, neighbors, K, voxel_size, epoch, queries, queries, valid,
+                      (("table", data, torch.int32),))
+    capture_geometry(B, P, npad)
+    rows = torch.empty((B, P, npad, 128), dtype=torch.int32, device=dev) if return_rows else None
+    planes = torch.empty((4, B, 2 * P, npad), dtype=torch.float32, device=dev)
+    fn = cuda_build.load("capture").capture_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    inv_vs = (1.0 / voxel_size).contiguous()
+    p = cuda_build.ptr
+    argv = (
+        p(data), p(voxel_size), p(inv_vs), p(epoch), p(queries), _opt(valid_u8), _opt(rows),
+        *(p(pl) for pl in planes), B, n, npad, P, neighbors, K, stride, data.shape[1],
+        int(valid is not None),
+    )
+
+    def launch():
+        cuda_build.check(fn(*argv, cuda_build.stream_ptr(dev)), "capture_gather_kernel")
+
+    launch.tensors = (data, voxel_size, inv_vs, epoch, queries, valid_u8, rows, planes)
+
+    def result():
+        return tuple(planes) + (rows,) if return_rows else tuple(planes)
+
+    return launch, result
 
 
 def capture_planar_reselect(
@@ -287,8 +325,24 @@ def capture_planar_reselect(
     B, P, npad, w = rows.shape
     if w != 128 or P != neighbors or B != queries_live.shape[0]:
         raise ValueError(f"reselect kernel: rows must be (B, P, npad, 128), got {tuple(rows.shape)}")
-    planes = _launch(rows, voxel_size, epoch, queries_live, queries_cap, valid, neighbors, K,
-                     stride, npad, True, None)
+    n = queries_live.shape[1]
+    dev = queries_live.device
+    valid_u8 = _check(B, n, npad, neighbors, K, voxel_size, epoch, queries_live, queries_cap, valid,
+                      (("rows", rows, torch.int32),))
+    planes = torch.empty((4, B, 2 * P, npad), dtype=torch.float32, device=dev)
+    fn = cuda_build.load("capture").reselect_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    inv_vs = (1.0 / voxel_size).contiguous()
+    p = cuda_build.ptr
+    err = fn(
+        p(rows), p(voxel_size), p(inv_vs), p(epoch), p(queries_live),
+        p(queries_cap), _opt(valid_u8), *(p(pl) for pl in planes), B, n, npad, P, neighbors, K,
+        stride, int(valid is not None), cuda_build.stream_ptr(dev),
+    )
+    cuda_build.check(err, "reselect_kernel")
+    planes = tuple(planes)
     capture_planar_reselect.launches += 1
     return planes
 

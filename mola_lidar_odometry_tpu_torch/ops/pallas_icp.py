@@ -15,15 +15,15 @@ Port of ``mola_lidar_odometry_tpu/ops/pallas_icp.py::align_fused``
 
 Then the paired-ratio quality at the final pose.
 
-The CUDA kernel (``csrc/align.cu``) runs one thread block per instance:
-the match and the moments are a block-strided pass over the points
-(candidates stream from L2: about 0.8 MB per instance at the bench shape,
-beyond one SM's shared memory), a block reduction gives the 19 moments and
-the pair count, and one thread does the 6x6 solve and the pose update.  It
-is bound by latency (a serial chain of reductions and scalar solves per
-iteration on B of the card's 132 SMs), not by bytes or flops.  Reductions
-run in another order than the plain twin's, so the two agree to within
-3e-3 on R and t, one iteration and 0.02 quality.
+The CUDA kernel (``csrc/align.cu``) runs one thread-block cluster per
+instance (:func:`align_geometry` sets its shape): each CTA keeps its slice of
+the points, and of the candidate planes when they fit, on chip; the moments
+are reduced across the cluster through distributed shared memory so that
+every CTA solves the 6x6 system on one warp and takes the same loop
+decision.  It is bound by latency (a chain of barriers and small solves per
+iteration), not by bytes or flops.  Reductions run in another order than the
+plain twin's, so the two agree to within 3e-3 on R and t, one iteration and
+0.02 quality.
 
 :func:`align_fused` launches the kernel for CUDA tensors and runs
 :func:`align_fused_plain` for CPU tensors.
@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -336,6 +336,46 @@ def align_fused_plain(
 # ---------------------------------------------------------------------------
 
 
+# CTAs per instance.  16 (a non-portable cluster size) beat 8 on an H100 at
+# B=8 and tied at B=16 (PERF.md).
+CLUSTER = 16
+MAX_THREADS = 512  # csrc/align.cu kMaxThreads
+PPTS = (1, 2)  # the kernel's instantiations of points per thread
+MAX_NPAD = CLUSTER * MAX_THREADS * PPTS[-1]  # 16384, the fused path's largest N (ops/icp.py)
+SMEM_PLANES_MAX = 232448 - 4096  # the opt-in shared memory of a CTA, less its static part
+
+
+class AlignGeometry(NamedTuple):
+    cluster: int  # CTAs per instance (one cluster each)
+    slice: int  # points per CTA
+    threads: int  # threads per CTA
+    ppt: int  # points per thread
+    smem_bytes: int  # dynamic shared memory per CTA
+    planes_in_smem: bool  # the slice's planes in shared memory, else read from global memory
+
+
+def align_geometry(npad: int, C: int) -> AlignGeometry:
+    """Launch shape of kernel B3 for ``npad`` points and ``C`` candidates.
+
+    The slice's four candidate planes (``16 * C * slice`` bytes) live in
+    shared memory when they fit and are read from global memory on every
+    pass otherwise; that branch follows from the shape alone."""
+    if npad % 128:
+        raise ValueError(f"align kernel: npad={npad} must be a multiple of 128")
+    if npad > MAX_NPAD:
+        raise ValueError(f"align kernel: npad={npad} > {MAX_NPAD} points")
+    sl = npad // CLUSTER
+    ppt = next(p for p in PPTS if p * MAX_THREADS >= sl)
+    threads = _round_up(-(-sl // ppt), 32)
+    planes = 16 * C * sl
+    fits = planes <= SMEM_PLANES_MAX
+    return AlignGeometry(CLUSTER, sl, threads, ppt, planes if fits else 0, fits)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
 def align_fused(
     planar, pts, valid, init_R, init_t, prior_R, prior_t, prior_info, thr_tab, kc_tab, budget, *,
     min_abs_step_trans: float, min_abs_step_rot: float, hook_min_trans: float, hook_min_rot: float,
@@ -348,11 +388,26 @@ def align_fused(
         hook_min_trans=hook_min_trans, hook_min_rot=hook_min_rot, weight=weight,
         damping=damping, gn_inner=gn_inner, it0=it0, hook_ref_R=hook_ref_R, hook_ref_t=hook_ref_t,
     )
+    args = (planar, pts, valid, init_R, init_t, prior_R, prior_t, prior_info, thr_tab, kc_tab, budget)
     if not pts.is_cuda:
-        return align_fused_plain(
-            planar, pts, valid, init_R, init_t, prior_R, prior_t, prior_info, thr_tab, kc_tab,
-            budget, **kw,
-        )
+        return align_fused_plain(*args, **kw)
+    cx = planar[0]
+    launch, result = align_launcher(align_geometry(cx.shape[2], cx.shape[1]), *args, **kw)
+    launch()
+    align_fused.launches += 1
+    return result()
+
+
+def align_launcher(
+    geo: AlignGeometry, planar, pts, valid, init_R, init_t, prior_R, prior_t,
+    prior_info, thr_tab, kc_tab, budget, *, min_abs_step_trans, min_abs_step_rot, hook_min_trans,
+    hook_min_rot, weight=1.0, damping=1e-8, gn_inner=2, it0=None, hook_ref_R=None, hook_ref_t=None,
+):
+    """Check the inputs and pack the kernel's arguments once; returns
+    ``(launch, result)``: ``launch()`` runs ``align_kernel`` with shape
+    ``geo`` on the current stream (it raises on a refused launch), and
+    ``result()`` reads the outputs of the last launch.  The split lets a
+    measurement time the kernel without the packing."""
     cx, cy, cz, cm = planar
     B, C, npad = cx.shape
     n = pts.shape[1]
@@ -386,25 +441,29 @@ def align_fused(
     thr2 = (thr_tab * thr_tab).to(f32).contiguous()
     kc = kc_tab.to(f32).contiguous()
     valid_u8 = valid.to(torch.uint8).contiguous()
-    scratch = torch.empty((B, 4, npad), dtype=f32, device=dev)
     out = torch.empty((B, 16), dtype=f32, device=dev)
     fn = cuda_build.load("align").align_launch
     if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float] * 6 + [ctypes.c_void_p]
-        )
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [ctypes.c_float] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     p = cuda_build.ptr
-    err = fn(
-        p(pts), p(valid_u8), p(cx), p(cy), p(cz), p(cm), p(params), p(thr2), p(kc), p(scratch), p(out),
-        B, n, npad, C, thr_tab.shape[1], gn_inner,
-        min_t, min_r, hook_t, hook_r, damping, weight, cuda_build.stream_ptr(dev),
+    argv = (
+        p(pts), p(valid_u8), p(cx), p(cy), p(cz), p(cm), p(params), p(thr2), p(kc), p(out),
+        B, n, npad, C, thr_tab.shape[1], gn_inner, geo.cluster, geo.threads, geo.ppt, geo.slice,
+        int(geo.planes_in_smem), geo.smem_bytes, min_t, min_r, hook_t, hook_r, damping, weight,
     )
-    cuda_build.check(err, "align_kernel")
-    align_fused.launches += 1
-    R = out[:, :9].reshape(B, 3, 3)
-    iters = out[:, 12].to(torch.int32) - it0.to(torch.int32)
-    return R, out[:, 9:12], iters, out[:, 13] > 0, out[:, 14] > 0, out[:, 15]
+
+    def launch():
+        cuda_build.check(fn(*argv, cuda_build.stream_ptr(dev)), "align_kernel")
+
+    launch.tensors = (pts, valid_u8, planar, params, thr2, kc, out)  # alive as long as launch
+
+    def result():
+        R = out[:, :9].reshape(B, 3, 3)
+        iters = out[:, 12].to(torch.int32) - it0.to(torch.int32)
+        return R, out[:, 9:12], iters, out[:, 13] > 0, out[:, 14] > 0, out[:, 15]
+
+    return launch, result
 
 
 align_fused.launches = 0

@@ -9,7 +9,9 @@ inside the test).  On a machine with a GPU and nvcc:
 need not have; this file imports nothing of it.)
 
 B1/B2/B4 must equal their twins bit for bit; B3 must agree within 3e-3 on R
-and t, one iteration and 0.02 quality (reduction order differs)."""
+and t, one iteration and 0.02 quality (reduction order differs), at both of
+its branches (candidate planes in shared memory, and read from global memory
+where a slice's planes do not fit)."""
 
 import numpy as np
 import pytest
@@ -29,26 +31,35 @@ def dev():
     return "cuda"
 
 
-def _scene(dev, n=700, seed=0):
+def _scene(dev, n=700, seed=0, b=B):
     rng = np.random.default_rng(seed)
-    pts = rng.uniform(-8, 8, (B, 4000, 3)).astype(np.float32)
+    pts = rng.uniform(-8, 8, (b, 4000, 3)).astype(np.float32)
     pts[:, :2000, 2] = 0.0
-    m = vh.VoxelHashMap.create(1 << 12, 20, 1.0, batch=B, device=dev)
+    m = vh.VoxelHashMap.create(1 << 12, 20, 1.0, batch=b, device=dev)
     m, _ = vh.insert_stats(m, PointCloud.from_xyz(torch.from_numpy(pts).to(dev)))
-    local = pts[:, rng.integers(0, 4000, n)] + rng.normal(0, 0.05, (B, n, 3)).astype(np.float32)
-    valid = rng.random((B, n)) > 0.1
+    local = pts[:, rng.integers(0, 4000, n)] + rng.normal(0, 0.05, (b, n, 3)).astype(np.float32)
+    valid = rng.random((b, n)) > 0.1
     return m, torch.from_numpy(local).to(dev), torch.from_numpy(valid).to(dev)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nbr", [1, 4, 8, 27])
-def test_capture_kernels_bit_exact(dev, nbr):
-    m, q, valid = _scene(dev)
+@pytest.mark.parametrize(
+    "nbr,n,masked", [(1, 700, True), (4, 700, True), (8, 700, True), (27, 700, True), (8, 333, False), (27, 31, False)]
+)
+def test_capture_kernels_bit_exact(dev, nbr, n, masked):
+    """B1 and B2 at every probe count, N not a multiple of 32, with and
+    without a valid mask."""
+    m, q, valid = _scene(dev, n=n)
+    valid = valid if masked else None
     args = (m.data, m.voxel_size, m.epoch, q, nbr)
     kw = dict(K=m.K, stride=m.stride, valid=valid, return_rows=True)
+    before = pc.capture_planar.launches
     got, ref = pc.capture_planar(*args, **kw), pc.capture_planar_plain(*args, **kw)
+    assert pc.capture_planar.launches == before + 1
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+    without_rows = pc.capture_planar(*args, **dict(kw, return_rows=False))
+    assert len(without_rows) == 4 and all(torch.equal(g, r) for g, r in zip(without_rows, ref))
     moved = se3.transform(se3.se3_exp(torch.tensor([0.05, 0.0, -0.02, 0.0, 0.01, 0.0], device=dev).expand(B, 6)), q)
     args2 = (got[4], m.voxel_size, m.epoch, moved.contiguous(), q, nbr)
     kw2 = dict(K=m.K, stride=m.stride, valid=valid)
@@ -97,6 +108,75 @@ def test_align_kernel_matches_plain(dev):
     _align_close(pi.align_fused(*args2, it0=ref1[2], **kw), pi.align_fused_plain(*args2, it0=ref1[2], **kw))
 
 
+def _align_setup(dev, b, n, nbr, seed, maxit=60):
+    """A capture at entry poses 4-12 cm off the answer and the align's other
+    inputs (a prior that pulls, annealed thresholds)."""
+    m, q, valid = _scene(dev, n=n, seed=seed, b=b)
+    xi = torch.tensor([[0.04 + 0.01 * (k % 8), -0.03, 0.01, 0.002, 0.0, 0.004] for k in range(b)], device=dev)
+    entry = se3.se3_exp(xi)
+    prior = se3.se3_exp(torch.tensor([0.03, 0.02, 0.0, 0.0, 0.0, 0.002], device=dev).expand(b, 6))
+    info = torch.diag_embed(torch.tensor([500.0] * 3 + [2e5] * 3, device=dev).expand(b, 6)).contiguous()
+    ann = torch.clamp(2.0 - 1.5 * torch.arange(maxit, device=dev) / 10, min=1.0).expand(b, maxit)
+    thr, kc = (2 * ann).contiguous(), (0.5 * ann).contiguous()
+    planar = pc.capture_planar(m.data, m.voxel_size, m.epoch, se3.transform(entry, q).contiguous(), nbr,
+                               K=m.K, stride=m.stride, valid=valid)
+    kw = dict(min_abs_step_trans=1e-4, min_abs_step_rot=5e-5, hook_min_trans=0.5, hook_min_rot=0.1,
+              hook_ref_R=entry.R, hook_ref_t=entry.t)
+    return (planar, q, valid, entry.R, entry.t, prior.R, prior.t, info, thr, kc), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,nbr", [(1, 3000, 8), (8, 3000, 8), (8, 3000, 1), (8, 3000, 4), (2, 16000, 8)])
+def test_align_kernel_shapes(dev, b, n, nbr):
+    """B3 at B=1 and 8, C = 2, 8 and 16, and at an npad whose slice's planes
+    do not fit in shared memory (the global-memory branch, 2 points per
+    thread)."""
+    args, kw = _align_setup(dev, b, n, nbr, seed=3)
+    npad, C = args[0][0].shape[2], args[0][0].shape[1]
+    geo = pi.align_geometry(npad, C)
+    assert C == 2 * nbr and geo.planes_in_smem == (n < 4000)
+    budget = torch.full((b,), 60, dtype=torch.int32, device=dev)
+    before = pi.align_fused.launches
+    got, ref = pi.align_fused(*args, budget, **kw), pi.align_fused_plain(*args, budget, **kw)
+    assert pi.align_fused.launches == before + 1
+    _align_close(got, ref)
+    assert bool((ref[2] > 1).all()) and bool(ref[4].all())  # every instance iterated and converged
+
+
+@pytest.mark.cuda
+def test_align_kernel_budget_resume_and_no_pairs(dev):
+    """Per instance: an exhausted budget (it0 + budget reached before
+    convergence), a zero budget, a resumed count (it0 > 0), and an instance
+    with no valid point and so no pairs (the prior alone moves it)."""
+    args, kw = _align_setup(dev, 5, 700, 8, seed=4)
+    valid = args[2].clone()
+    valid[4] = False
+    args = args[:2] + (valid,) + args[3:]
+    it0 = torch.tensor([0, 0, 0, 7, 0], dtype=torch.int32, device=dev)
+    budget = torch.tensor([60, 2, 0, 50, 60], dtype=torch.int32, device=dev)
+    got = pi.align_fused(*args, budget, it0=it0, **kw)
+    ref = pi.align_fused_plain(*args, budget, it0=it0, **kw)
+    _align_close(got, ref)
+    assert ref[2].tolist()[1:3] == [2, 0] and not bool(ref[4][1]) and float(ref[5][4]) == 0.0
+    assert float((ref[1][4] - args[4][4]).norm()) > 1e-3  # the prior pulled the pair-less instance
+
+
+@pytest.mark.cuda
+def test_align_kernel_refused_launch_raises(dev):
+    """A cluster the card cannot schedule, or more shared memory than a CTA
+    may have, raises instead of running anything else; the refusal leaves no
+    error behind, so a valid launch right after it runs and agrees."""
+    args, kw = _align_setup(dev, 2, 700, 8, seed=5)
+    budget = torch.full((2,), 10, dtype=torch.int32, device=dev)
+    geo = pi.align_geometry(args[0][0].shape[2], args[0][0].shape[1])
+    ref = pi.align_fused_plain(*args, budget, **kw)
+    for bad in (geo._replace(cluster=32), geo._replace(smem_bytes=300 * 1024)):
+        launch, _ = pi.align_launcher(bad, *args, budget, **kw)
+        with pytest.raises(RuntimeError, match="align_kernel"):
+            launch()
+        _align_close(pi.align_fused(*args, budget, **kw), ref)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nbr,n", [(8, 700), (27, 700), (27, 333), (1, 31)])
 def test_nn_select_kernel_bit_exact(dev, nbr, n):
@@ -129,13 +209,19 @@ def test_nn_select_kernel_bit_exact(dev, nbr, n):
 
 
 def test_cpu_tensors_take_the_plain_twin():
-    """On the CPU the wrappers run their twins and count no launch."""
+    """On the CPU the wrappers (B1, B3, B4) run their twins and count no launch."""
     m, q, valid = _scene("cpu")
     before = pc.capture_planar.launches
     out = pc.capture_planar(m.data, m.voxel_size, m.epoch, q, 8, K=m.K, stride=m.stride, valid=valid)
     ref = pc.capture_planar_plain(m.data, m.voxel_size, m.epoch, q, 8, K=m.K, stride=m.stride, valid=valid)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     assert pc.capture_planar.launches == before
+    before = pi.align_fused.launches
+    args, kw = _align_setup("cpu", 2, 300, 8, seed=6, maxit=10)
+    budget = torch.full((2,), 10, dtype=torch.int32)
+    got, ref = pi.align_fused(*args, budget, **kw), pi.align_fused_plain(*args, budget, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert pi.align_fused.launches == before
     planar = pm.to_planar(vh.capture(m, q, 8, per_voxel_nn=True))
     before = pm.nn_select.launches
     got, ref = pm.nn_select(planar, q), pm.nn_select_plain(planar, q)
