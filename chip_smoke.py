@@ -10,7 +10,7 @@ Phases, one line of numbers each:
   2. build   — compiles the port's CUDA kernels from csrc/ (one nvcc per
                source, all at once) and reports the seconds;
   3. kernels — runs every kernel against its plain PyTorch twin on the card.
-               First the design parameters of B1 and B3 (launch shape,
+               First the design parameters of B1, B2 and B3 (launch shape,
                shared memory, B3's cluster size and plane branch, registers
                and spills from nvcc's -Xptxas -v report).  B1, B2 and B3 at
                bench shapes (B=8 instances,
@@ -22,11 +22,12 @@ Phases, one line of numbers each:
                the iteration count, a weighted prior, the twist hook firing
                for two instances): B1/B2 must match bit for bit, B3 within
                3e-3 on R and t, one iteration and 0.02 quality.  Device
-               times come from CUDA-graph replays: B1 and B3 alone
-               (arguments packed once), B2 as its wrapper call; the whole
-               wrapper calls from CUDA graphs and issued from Python are
-               printed beside them, and B3 also per iteration of its slowest
-               instance.  B4
+               times come from CUDA-graph replays: B1, B2 and B3 alone
+               (arguments packed once); the whole wrapper calls from CUDA
+               graphs and issued from Python are printed beside them, B3
+               also per iteration of its slowest instance, and B2's bound
+               both over the sectors its selection needs (the record's) and
+               over whole rows.  B4
                (nn_select) at the dual-map path's shapes (B=8, the sized 3072
                and 6656 ICP points, C=54 candidates from a 27-probe per-voxel
                capture of K=20 and K=10 maps filled by the port's insert, some
@@ -332,10 +333,13 @@ def phase_kernels(dev):
     args3a, kw3a, args3b, kw3b = c["args3a"], c["kw3a"], c["args3b"], c["kw3b"]
     ref1, ref3a, ref2, ref3b = c["ref1"], c["ref3a"], c["ref2"], c["ref3b"]
     q0 = c["q0"]
-    geo1, geo3 = pc.capture_geometry(B, P, npad), pi.align_geometry(npad, C)
+    geo1, geo2, geo3 = pc.capture_geometry(B, P, npad), pc.reselect_geometry(B, P, npad), pi.align_geometry(npad, C)
     log(f"kernels: B1 design: one thread per (instance, probe, query), {geo1.threads} threads per block, "
         f"grid {geo1.grid}, {geo1.smem_bytes} B static shared memory per block (32 staged rows per warp); "
         f"{ptxas_report('capture', 'capture_gather_kernel')}")
+    log(f"kernels: B2 design: one thread per (instance, probe, query), {geo2.threads} threads per block, "
+        f"grid {geo2.grid}, no shared memory; the W way-header sectors, then the selected way's live words; "
+        f"{ptxas_report('capture', 'reselect_kernel')}")
     log(f"kernels: B3 design: a cluster of {geo3.cluster} CTAs per instance ({B * geo3.cluster} CTAs), "
         f"{geo3.threads} threads x {geo3.ppt} point(s) on a {geo3.slice}-point slice, {geo3.smem_bytes} B "
         f"dynamic shared memory per CTA, planes read from {'shared' if geo3.planes_in_smem else 'global'} "
@@ -390,25 +394,27 @@ def phase_kernels(dev):
         return lambda: (fn(*args3a, **kw3a), fn(*args3b, **kw3b))
 
     # Device times from CUDA-graph replays (the host's cost of issuing a
-    # launch from Python, which varies between calls, is not counted): B1
-    # and B3 alone (arguments checked and packed once), B2 as its wrapper
-    # call.  The whole wrapper calls are timed from CUDA graphs too (the
-    # measure that compares with earlier trees) and issued from Python (the
-    # host's share).
+    # launch from Python, which varies between calls, is not counted): each
+    # kernel alone (arguments checked and packed once).  The whole wrapper
+    # calls are timed from CUDA graphs too (the measure that compares with
+    # earlier trees) and issued from Python (the host's share).
     launch1 = pc.capture_launcher(*args1, **kw1)[0]
+    launch2 = pc.reselect_launcher(*args2, **kw2)[0]
     launch3 = [pi.align_launcher(geo3, *a, **k)[0] for a, k in ((args3a, kw3a), (args3b, kw3b))]
     ms1 = cuda_graph_ms(launch1, 20)
     call_ms1 = cuda_ms(lambda: pc.capture_planar(*args1, **kw1), 20, 3)
     pms1 = cuda_ms(lambda: pc.capture_planar_plain(*args1, **kw1), 2)
     wms = wrapper_graph_ms(c)
-    ms2 = wms["B2"]
+    ms2 = cuda_graph_ms(launch2, 20)
+    call_ms2 = cuda_ms(lambda: pc.capture_planar_reselect(*args2, **kw2), 20, 3)
     pms2 = cuda_ms(lambda: pc.capture_planar_reselect_plain(*args2, **kw2), 2)
     ms3 = cuda_graph_ms(lambda: [launch() for launch in launch3], 10) / 2
     call_ms3 = cuda_ms(both(pi.align_fused), 10, 2) / 2
     pms3 = cuda_ms(both(pi.align_fused_plain), 1, 0) / 2
 
     # bounds from this run's inputs: bytes each input read once / each output
-    # written once; B1's table input counts the distinct rows it probes
+    # written once; B1's table input counts the distinct rows it probes, B2's
+    # rows the 32-byte sectors its selection needs (the whole rows beside)
     vs = m.voxel_size.view(B, 1, 1)
     qp = torch.nn.functional.pad(q0, (0, 0, 0, npad - N))
     buckets = voxel_hash(neighbor_coords(qp, voxel_coords(qp, vs), vs, P), m.data.shape[1])
@@ -422,7 +428,9 @@ def phase_kernels(dev):
     rows = B * P * npad * 512
     flops_sel = B * P * npad * 32 * 20  # 32 lanes x ~20 flops of dequantize + distance
     b1 = bound(uniq_rows * 512 + q_bytes + planes + rows, flops_sel)
-    b2 = bound(rows + 2 * q_bytes + planes, flops_sel)
+    b2_rows = bound(rows + 2 * q_bytes + planes, flops_sel)
+    sectors, words = pc.reselect_sectors(args2[0], m.voxel_size, m.epoch, q0, P, m.K, m.stride)
+    b2 = bound(sectors * 32 + 2 * q_bytes + planes, (words + 2 * B * P * npad) * 20)
     it_total = int(ref3a[2].sum() + ref3b[2].sum() + 2 * B)  # + each launch's quality pass
     flops3 = it_total * npad * (C * 9 + 18 + c["gn_inner"] * 45)
     b3 = bound(2 * (B * N * 13 + planes + 2 * B * c["maxit"] * 4 + B * 16 * 4), flops3)
@@ -435,9 +443,12 @@ def phase_kernels(dev):
     it_max = int(ref3a[2].max()) + int(ref3b[2].max())
     log(f"kernels: B3 {ms3:.4f} ms per launch, {2 * ms3 / it_max * 1e3:.2f} us per iteration "
         f"({it_max} iterations of the slowest instance over the two phases, quality passes included)")
+    log(f"kernels: B2 bounds: {b2[0]:.4f} ms by {b2[1]} over the {sectors} sectors its selection needs "
+        f"({sectors * 32 / 1e6:.2f} MB of rows, {words} live point words; {100 * b2[0] / ms2:.1f}% of its time), "
+        f"{b2_rows[0]:.4f} ms by {b2_rows[1]} over whole rows ({rows / 1e6:.2f} MB; {100 * b2_rows[0] / ms2:.1f}%)")
     log(f"kernels: whole wrapper calls (kernel + argument packing) from CUDA graphs: B1 {wms['B1']:.4f} ms, "
         f"B2 {wms['B2']:.4f} ms, B3 {wms['B3']:.4f} ms per launch; issued from Python: B1 {call_ms1:.4f} ms, "
-        f"B3 {call_ms3:.4f} ms per launch")
+        f"B2 {call_ms2:.4f} ms, B3 {call_ms3:.4f} ms per launch")
     recs = [
         dict(name="capture_planar", route="cuda", source="mola_lidar_odometry_tpu_torch/csrc/capture.cu",
              replaces="mola_lidar_odometry_tpu/ops/pallas_capture.py:257", max_abs_err=err1,

@@ -21,20 +21,44 @@
 //     instructions on the row traffic.  The staged row stride is padded by
 //     16 bytes, so each thread's 16-byte reads of its own row hit distinct
 //     bank groups within every quarter warp.
-//   * Each thread then reads its own row's way headers and its way's K
-//     point words, dequantizes them, and takes the top-2 by two serial
-//     first-min scans (the lowest index wins ties; the second scan puts kBig
-//     in place of the first pick), as the warp butterflies of B2 do.
+//   * Each thread then reads its own row's way headers and its way's live
+//     point words, and selects through select_top2, the code B2 runs too.
 //
-// B2, reselect_kernel: one warp per (b, p, i) on the row B1 wrote, with the
-//   same selection spread over the lanes (16-byte row read, way select by
-//   shuffles, two warp argmin butterflies).  Bound by bytes: 512 B per row.
+// B2, reselect_kernel: one thread per (b, p, i), i fastest, on the row B1
+//   wrote for that probe.
+//   * What bounds it: bytes, but only the bytes its selection needs.  Of the
+//     512-byte row it needs the W way headers and the selected way's live
+//     point words: the W header sectors (32 bytes each: pkey, state and point
+//     words 0-5), plus at most 2 sectors more when K = 20 and stride = 32, so
+//     at most 192 bytes.  Its first design (one warp per query, every lane
+//     reading 16 bytes of the row, ~40 shuffles and two 5-step butterflies,
+//     lane 0 storing 8 scattered floats) read all of every row and was bound
+//     by instruction issue.  It now reads scattered 32-byte sectors, one per
+//     128-byte way; registers do not limit it (59 or 103 of them, the same
+//     time on an H100).
+//   * The header pass issues the W sector loads (two int4 each, read-only
+//     path) together, and the way is chosen from registers.  The point pass
+//     then loads the selected way's further int4 chunks only while they hold
+//     a word k < min(cnt, K); a dead probe reads nothing more.
+//   * Queries, mask and the 8 output planes are indexed by i across a warp,
+//     so their loads and stores are coalesced.  No shuffles.
+//   * W = 128 / stride is a template parameter (1, 2 or 4 ways: the strides
+//     128, 64 and 32 that VoxelHashMap.create makes), so the headers stay in
+//     registers.
+//
+// select_top2, shared by both kernels: dequantize the selected way's live
+// words, take the top-2 in one serial pass equal to two first-min scans (the
+// lowest k wins ties; without a live word both picks fall on k = 0, whose
+// coordinates are still written), store the four planes.  It holds no
+// per-word distances, so B1 and B2 each take 58-59 registers (89 and 103
+// with two scans over a K-wide distance array).
 //
 // Both derive the expected key from floor(q_cap * inv_vs) and select the way
 // whose pkey and epoch match (the last matching way wins, way 0 when none
 // does).  This file is built with -fmad=false and spells the
 // rounding-sensitive arithmetic with __f*_rn intrinsics, so the output
-// planes equal the plain PyTorch twin's bit for bit.
+// planes equal the plain PyTorch twin's bit for bit wherever the squared
+// distances stay below kBig (every query within 1e19 of its probe voxel).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,7 +67,6 @@ namespace {
 
 constexpr float kBig = 3.4e38f;
 constexpr float kInvQ = 1.0f / 1024.0f;
-constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int wrap_hash(int cx, int cy, int cz, int nb) {
   // voxel_hash: Horner chain in int32 wraparound, then h ^ (h >> 16)
@@ -64,16 +87,6 @@ __device__ __forceinline__ void probe_offset(int neighbors, int p, float* o) {
     o[0] = (float)(p == 1); o[1] = (float)(p == 2); o[2] = (float)(p == 3);
   } else {
     o[0] = o[1] = o[2] = 0.0f;
-  }
-}
-
-// warp argmin over (d, k) with the lowest k winning ties; every lane gets it
-__device__ __forceinline__ void warp_argmin(float& d, int& k) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    float od = __shfl_xor_sync(kFull, d, off);
-    int ok = __shfl_xor_sync(kFull, k, off);
-    if (od < d || (od == d && ok < k)) { d = od; k = ok; }
   }
 }
 
@@ -129,6 +142,8 @@ __device__ __forceinline__ void bulk_store_wait_read() {
 constexpr int kRowStride = 128 + 4;  // staged row: 128 words + 16 bytes of padding
 constexpr int kGatherWarps = 2;      // warps per block, each on its own 32 queries
 constexpr int kMaxK = 32;
+constexpr int kChunks = (kMaxK + 2 + 3) / 4;  // int4 chunks of a way's pkey, state and <= 32 point words
+constexpr int kReselectThreads = 128;          // B2: queries per block
 
 // the probe's expected packed key from q_cap * inv_vs (and the dequantization
 // base e of its voxel)
@@ -156,6 +171,43 @@ __device__ __forceinline__ float dequant(int pw, const float* e, float vs, const
     d2 = a == 0 ? __fmul_rn(d, d) : __fadd_rn(d2, __fmul_rn(d, d));
   }
   return d2;
+}
+
+// The top-2 of a probe, shared by B1 and B2.  words[2 + k] is point word k of
+// the selected way (words[2] always loaded); the nk words k < nk are its live
+// candidates.  Each is dequantized against the probe voxel e and ranked by d2
+// to ql in one serial pass that keeps the best and the second best with
+// strict compares: the same picks as two first-min scans (the lowest k wins
+// ties, the second scan with kBig at the first pick), without holding the K
+// distances.  Chunks past the live words are skipped.  Without a live word
+// both picks fall on k = 0, whose coordinates are still written.  Both picks
+// go to the planes at o1 and o2, their masks times vm.
+__device__ __forceinline__ void select_top2(const int (&words)[4 * kChunks], int nk, const float* e, float vs,
+                                            const float* ql, float vm, float* __restrict__ cx,
+                                            float* __restrict__ cy, float* __restrict__ cz,
+                                            float* __restrict__ cm, size_t o1, size_t o2) {
+  float d1 = kBig, d2 = kBig;
+  int w1 = words[2], w2 = words[2];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    if (4 * c < 2 + nk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = 4 * c + j - 2;
+        if (k >= 0 && k < nk) {
+          float xs[3];
+          const float d = dequant(words[4 * c + j], e, vs, ql, xs);
+          if (d < d1) { d2 = d1; w2 = w1; d1 = d; w1 = words[4 * c + j]; }
+          else if (d < d2) { d2 = d; w2 = words[4 * c + j]; }
+        }
+      }
+    }
+  }
+  float x1[3], x2[3];
+  dequant(w1, e, vs, ql, x1);
+  dequant(w2, e, vs, ql, x2);
+  cx[o1] = x1[0]; cy[o1] = x1[1]; cz[o1] = x1[2]; cm[o1] = (d1 < kBig) ? vm : 0.f;
+  cx[o2] = x2[0]; cy[o2] = x2[1]; cz[o2] = x2[2]; cm[o2] = (d2 < kBig) ? vm : 0.f;
 }
 
 // grid (ceil(npad / (32 * kGatherWarps)), P, B), block 32 * kGatherWarps
@@ -228,137 +280,93 @@ __global__ void __launch_bounds__(32 * kGatherWarps) capture_gather_kernel(
     any_ok = any_ok || ok;
   }
   const int cnt = st & 0xFFFF;
-  const bool live = any_ok && cnt > 0;
+  const int nk = (any_ok && cnt > 0) ? min(cnt, K) : 0;
 
-  // ---- the way's K point words (16-byte reads), distances ----
+  // ---- the way's live point words (16-byte reads), top-2 ----
   const int4* wp = reinterpret_cast<const int4*>(row + wsel * stride);
-  int words[4 * ((kMaxK + 2 + 3) / 4)];
+  int words[4 * kChunks];
 #pragma unroll
-  for (int c = 0; c < (kMaxK + 2 + 3) / 4; ++c) {
+  for (int c = 0; c < kChunks; ++c) {
     int4 x = make_int4(0, 0, 0, 0);
-    if (4 * c < 2 + K) x = wp[c];
+    if (4 * c < 2 + nk) x = wp[c];
     words[4 * c] = x.x; words[4 * c + 1] = x.y; words[4 * c + 2] = x.z; words[4 * c + 3] = x.w;
   }
-  float dk[kMaxK];
-  float xs[3];
-#pragma unroll
-  for (int k = 0; k < kMaxK; ++k) {
-    dk[k] = kBig;
-    if (k < K) {
-      const float d2 = dequant(words[2 + k], e, vs, ql, xs);
-      if (live && k < cnt) dk[k] = d2;
-    }
-  }
-  // top-2: two first-min scans over k < K; the second with kBig at the first
-  float d1 = dk[0];
-  int w1 = words[2], k1 = 0;
-#pragma unroll
-  for (int k = 1; k < kMaxK; ++k)
-    if (k < K && dk[k] < d1) { d1 = dk[k]; k1 = k; w1 = words[2 + k]; }
-  float db = (k1 == 0) ? kBig : dk[0];
-  int w2 = words[2];
-#pragma unroll
-  for (int k = 1; k < kMaxK; ++k) {
-    const float d = (k == k1) ? kBig : dk[k];
-    if (k < K && d < db) { db = d; w2 = words[2 + k]; }
-  }
-  float x1[3], x2[3];
-  dequant(w1, e, vs, ql, x1);
-  dequant(w2, e, vs, ql, x2);
-
-  const float vm = (has_valid && !vq) ? 0.f : 1.f;
   const size_t o1 = (size_t)(b * 2 * P + p) * npad + i;
-  const size_t o2 = o1 + (size_t)P * npad;
-  cx[o1] = x1[0]; cy[o1] = x1[1]; cz[o1] = x1[2]; cm[o1] = (d1 < kBig) ? vm : 0.f;
-  cx[o2] = x2[0]; cy[o2] = x2[1]; cz[o2] = x2[2]; cm[o2] = (db < kBig) ? vm : 0.f;
+  select_top2(words, nk, e, vs, ql, (has_valid && !vq) ? 0.f : 1.f, cx, cy, cz, cm, o1, o1 + (size_t)P * npad);
   if (rows_out != nullptr) bulk_store_wait_read();  // the row stays put until the store has read it
 }
 
-__global__ void reselect_kernel(
+// grid (ceil(npad / kReselectThreads), P, B), block kReselectThreads; W ways of
+// 128 / W words per row
+template <int W>
+__global__ void __launch_bounds__(kReselectThreads) reselect_kernel(
     const int* __restrict__ rows,  // (B, P, npad, 128), written by B1
     const float* __restrict__ voxel_size, const float* __restrict__ inv_voxel_size,
     const int* __restrict__ epoch, const float* __restrict__ q_live,
     const float* __restrict__ q_cap, const unsigned char* __restrict__ valid,
     float* __restrict__ cx, float* __restrict__ cy, float* __restrict__ cz,
-    float* __restrict__ cm, int B, int N, int npad, int P, int neighbors, int K, int stride,
-    int has_valid) {
-  const int lane = threadIdx.x & 31;
-  const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (w >= (long long)B * P * npad) return;  // uniform per warp
-  const int i = (int)(w % npad);
-  const int p = (int)((w / npad) % P);
-  const int b = (int)(w / ((long long)npad * P));
+    float* __restrict__ cm, int N, int npad, int P, int neighbors, int K, int has_valid) {
+  const int i = blockIdx.x * kReselectThreads + threadIdx.x;
+  if (i >= npad) return;
+  const int p = blockIdx.y, b = blockIdx.z;
 
   const bool in_range = i < N;
-  const long long qi = ((long long)b * N + i) * 3;
   float ql[3] = {0.f, 0.f, 0.f}, qc[3] = {0.f, 0.f, 0.f};
   if (in_range) {
-    for (int a = 0; a < 3; ++a) { ql[a] = q_live[qi + a]; qc[a] = q_cap[qi + a]; }
+    const int qi = (b * N + i) * 3;
+    for (int a = 0; a < 3; ++a) { ql[a] = __ldg(q_live + qi + a); qc[a] = __ldg(q_cap + qi + a); }
   }
-  const bool vq = in_range && (!has_valid || valid[(long long)b * N + i]);
+  const bool vq = in_range && (!has_valid || valid[b * N + i]);
   const float vs = voxel_size[b], inv = inv_voxel_size[b];
   const bool signed_probe = neighbors == 4 || neighbors == 8;
   float off[3];
   probe_offset(neighbors, p, off);
-
-  const long long row_id = ((long long)b * P + p) * npad + i;  // rows (B, P, npad)
-  const int4 v = reinterpret_cast<const int4*>(rows)[row_id * 32 + lane];
-
-  // ---- expected key of the probe, from q_cap * inv_vs ----
   float e[3];
   const int pk_exp = expected_key(qc, inv, off, signed_probe, e);
-
-  // ---- way select ----
   const int e16 = epoch[b] & 0xFFFF;
-  const int W = 128 / stride;
+
+  // ---- header pass: each way's first 32-byte sector (pkey, state, point
+  // words 0-5), all W loads in flight together ----
+  constexpr int kWay = 32 / W;  // int4 chunks per way
+  const int4* row = reinterpret_cast<const int4*>(rows) + (size_t)((b * P + p) * npad + i) * 32;
+  int4 h0[W], h1[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) { h0[w] = __ldg(row + w * kWay); h1[w] = __ldg(row + w * kWay + 1); }
+
+  // ---- way select from registers ----
   int wsel = 0;
   bool any_ok = false;
-  for (int way = 0; way < W; ++way) {
-    const int hl = way * stride / 4;
-    const int pk = __shfl_sync(kFull, v.x, hl);
-    const int st = __shfl_sync(kFull, v.y, hl);
-    const bool ok = pk == pk_exp && ((st >> 16) & 0xFFFF) == e16;
-    if (ok) wsel = way;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const bool ok = h0[w].x == pk_exp && ((h0[w].y >> 16) & 0xFFFF) == e16;
+    if (ok) wsel = w;
     any_ok = any_ok || ok;
   }
-  const int cnt = __shfl_sync(kFull, v.y, wsel * stride / 4) & 0xFFFF;
-  const bool live = any_ok && cnt > 0;
-
-  // ---- lane k <- point word k of the selected way ----
-  const int word = (lane < K) ? wsel * stride + 2 + lane : 0;
-  const int sl = word >> 2, comp = word & 3;
-  const int w0 = __shfl_sync(kFull, v.x, sl), w1 = __shfl_sync(kFull, v.y, sl);
-  const int w2 = __shfl_sync(kFull, v.z, sl), w3 = __shfl_sync(kFull, v.w, sl);
-  const int pw = comp == 0 ? w0 : comp == 1 ? w1 : comp == 2 ? w2 : w3;
-  float xs[3], d2 = 0.f;
-  for (int a = 0; a < 3; ++a) {
-    const float pq = (float)((pw >> (20 - 10 * a)) & 1023);
-    xs[a] = __fmul_rn(__fadd_rn(e[a], __fmul_rn(__fadd_rn(pq, 0.5f), kInvQ)), vs);
-    const float d = __fsub_rn(xs[a], ql[a]);
-    d2 = a == 0 ? __fmul_rn(d, d) : __fadd_rn(d2, __fmul_rn(d, d));
+  int words[4 * kChunks];
+#pragma unroll
+  for (int c = 0; c < 4 * kChunks; ++c) words[c] = 0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    if (w == wsel) {
+      words[0] = h0[w].x; words[1] = h0[w].y; words[2] = h0[w].z; words[3] = h0[w].w;
+      words[4] = h1[w].x; words[5] = h1[w].y; words[6] = h1[w].z; words[7] = h1[w].w;
+    }
   }
-  const bool kmask = live && lane < K && lane < cnt;
-  d2 = kmask ? d2 : kBig;
+  const int cnt = words[1] & 0xFFFF;
+  const int nk = (any_ok && cnt > 0) ? min(cnt, K) : 0;
 
-  float d1 = d2;
-  int k1 = lane;
-  warp_argmin(d1, k1);
-  float db = (lane == k1) ? kBig : d2;
-  int k2 = lane;
-  warp_argmin(db, k2);
-
-  // gather the winners' coordinates (every lane takes part in the shuffles)
-  const float x1 = __shfl_sync(kFull, xs[0], k1), y1 = __shfl_sync(kFull, xs[1], k1);
-  const float z1 = __shfl_sync(kFull, xs[2], k1);
-  const float x2 = __shfl_sync(kFull, xs[0], k2), y2 = __shfl_sync(kFull, xs[1], k2);
-  const float z2 = __shfl_sync(kFull, xs[2], k2);
-  if (lane == 0) {
-    const float vm = (has_valid && !vq) ? 0.f : 1.f;
-    const long long o1 = ((long long)b * 2 * P + p) * npad + i;
-    const long long o2 = o1 + (long long)P * npad;
-    cx[o1] = x1; cy[o1] = y1; cz[o1] = z1; cm[o1] = (d1 < kBig) ? vm : 0.f;
-    cx[o2] = x2; cy[o2] = y2; cz[o2] = z2; cm[o2] = (db < kBig) ? vm : 0.f;
+  // ---- point pass: the selected way's further chunks that hold a word
+  // k < nk; a dead probe reads nothing more ----
+  const int4* wp = row + wsel * kWay;
+#pragma unroll
+  for (int c = 2; c < kChunks; ++c) {
+    if (4 * c < 2 + nk) {
+      const int4 x = __ldg(wp + c);
+      words[4 * c] = x.x; words[4 * c + 1] = x.y; words[4 * c + 2] = x.z; words[4 * c + 3] = x.w;
+    }
   }
+  const size_t o1 = (size_t)(b * 2 * P + p) * npad + i;
+  select_top2(words, nk, e, vs, ql, (has_valid && !vq) ? 0.f : 1.f, cx, cy, cz, cm, o1, o1 + (size_t)P * npad);
 }
 
 }  // namespace
@@ -389,11 +397,16 @@ extern "C" int reselect_launch(
     const float* q_live, const float* q_cap, const unsigned char* valid, float* cx, float* cy,
     float* cz, float* cm, int B, int N, int npad, int P, int neighbors, int K, int stride,
     int has_valid, void* stream) {
-  const long long warps = (long long)B * P * npad;
-  const int threads = 256;
-  const long long blocks = (warps * 32 + threads - 1) / threads;
-  reselect_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      rows, voxel_size, inv_voxel_size, epoch, q_live, q_cap, valid, cx, cy, cz, cm, B, N, npad,
-      P, neighbors, K, stride, has_valid);
+  decltype(&reselect_kernel<4>) kernel = nullptr;
+  switch (128 / stride) {
+    case 1: kernel = reselect_kernel<1>; break;
+    case 2: kernel = reselect_kernel<2>; break;
+    case 4: kernel = reselect_kernel<4>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((unsigned)((npad + kReselectThreads - 1) / kReselectThreads), (unsigned)P, (unsigned)B);
+  kernel<<<grid, kReselectThreads, 0, (cudaStream_t)stream>>>(
+      rows, voxel_size, inv_voxel_size, epoch, q_live, q_cap, valid, cx, cy, cz, cm, N, npad, P,
+      neighbors, K, has_valid);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,8 @@ against the probe voxel, and keep the two nearest (first-min tie-break).
 Results come out planar, ``(B, 2P, npad)`` per coordinate plane, top-1 block
 over top-2 block — the layout the align kernel (B3) reads.
 
-Two CUDA kernels (``csrc/capture.cu``), both bound by bytes:
+Two CUDA kernels (``csrc/capture.cu``), both bound by bytes, selecting
+through one shared device function:
 
   * B1 (``capture_gather_kernel``) runs one thread per (instance, probe,
     query) for the arithmetic; each thread moves its query's 512-byte bucket
@@ -17,9 +18,11 @@ Two CUDA kernels (``csrc/capture.cu``), both bound by bytes:
     and selects its own top-2 with two serial scans (:func:`capture_geometry`
     gives the launch shape).  It reads the distinct probed rows and writes
     B·P·npad rows of 512 B (about 100 MB at the bench shape);
-  * B2 (``reselect_kernel``) runs one warp per (instance, probe, query) on
-    the rows B1 wrote: one 16-byte load per lane, the matched way's K point
-    words shuffled to K lanes, two warp argmin butterflies;
+  * B2 (``reselect_kernel``) runs one thread per (instance, probe, query) on
+    the rows B1 wrote and reads only what its selection needs: the W way
+    headers' 32-byte sectors, then the selected way's further point words
+    k < cnt (:func:`reselect_geometry` gives the launch shape,
+    :func:`reselect_sectors` counts the sectors for given inputs);
   * FMA contraction is off in that file, so the key derivation
     ``floor(q * inv_vs)``, the octant test ``q * inv_vs - (b + 0.5)`` and the
     dequantization ``(e + (p + 0.5) / 1024) * vs`` round exactly as in the
@@ -83,13 +86,12 @@ def _pad_points(x: torch.Tensor, npad: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, 0, 0, npad - x.shape[1]))
 
 
-def _select_top2(rows, q_live, q_cap, voxel_size, epoch, neighbors, K, stride):
-    """The kernel body as plain tensor code: rows (B, P, npad, 128) i32,
-    q_live/q_cap (B, npad, 3) -> planes (B, 8, P, npad)
-    [x1, y1, z1, m1, x2, y2, z2, m2]."""
+def _select_way(rows, q_cap, voxel_size, epoch, neighbors, stride):
+    """The way select of the kernel body: rows (B, P, npad, 128) i32, q_cap
+    (B, npad, 3) -> the probe voxels ``e`` (3 x (B, P, npad) f32), the
+    selected way's words (B, P, npad, stride) and whether any way matched."""
     B, P, npad, _ = rows.shape
     dev = rows.device
-    vs = voxel_size.view(B, 1, 1)
     inv_vs = (1.0 / voxel_size).view(B, 1, 1)
     offs, signed = _probe_offsets(neighbors, dev)
     e = []
@@ -109,7 +111,16 @@ def _select_top2(rows, q_live, q_cap, voxel_size, epoch, neighbors, K, stride):
     half = r[..., 0, :]
     for w in range(1, W):
         half = torch.where(ok_w[..., w, None], r[..., w, :], half)
-    any_ok = torch.any(ok_w, dim=-1)
+    return e, half, torch.any(ok_w, dim=-1)
+
+
+def _select_top2(rows, q_live, q_cap, voxel_size, epoch, neighbors, K, stride):
+    """The kernel body as plain tensor code: rows (B, P, npad, 128) i32,
+    q_live/q_cap (B, npad, 3) -> planes (B, 8, P, npad)
+    [x1, y1, z1, m1, x2, y2, z2, m2]."""
+    B = rows.shape[0]
+    dev = rows.device
+    e, half, any_ok = _select_way(rows, q_cap, voxel_size, epoch, neighbors, stride)
     cnt = (half[..., 1] & 0xFFFF).to(torch.float32)
     pp = half[..., 2 : 2 + K]  # (B, P, npad, K)
     kio = torch.arange(K, device=dev)
@@ -204,8 +215,24 @@ def capture_planar_reselect_plain(
     return _to_planar(_select_top2(rows, ql, qc, voxel_size, epoch, neighbors, K, stride), vmask)
 
 
+def reselect_sectors(rows, voxel_size, epoch, queries_cap, neighbors: int = 8, K: int = 20,
+                     stride: int = 32) -> Tuple[int, int]:
+    """What kernel B2 reads of ``rows`` for these inputs, by the plain way
+    select: ``(sectors, words)``.  Each probe reads its W way-header 32-byte
+    sectors (pkey, state, point words 0-5); a live probe also reads the
+    further sectors of its way that hold a word k < min(cnt, K).  ``words``
+    counts those live point words."""
+    _check_layout(K, stride)
+    npad = rows.shape[2]
+    _, half, any_ok = _select_way(rows, _pad_points(queries_cap, npad), voxel_size, epoch, neighbors, stride)
+    cnt = half[..., 1] & 0xFFFF
+    nk = torch.where(any_ok & (cnt > 0), torch.clamp(cnt, max=K), 0).long()
+    extra = (2 + nk + 7) // 8 - 1  # sectors of the way past its header sector
+    return int((128 // stride) * nk.numel() + extra.sum()), int(nk.sum())
+
+
 # ---------------------------------------------------------------------------
-# the CUDA kernel (csrc/capture.cu)
+# the CUDA kernels (csrc/capture.cu)
 # ---------------------------------------------------------------------------
 
 
@@ -225,6 +252,22 @@ def capture_geometry(B: int, P: int, npad: int) -> CaptureGeometry:
     if P > 65535 or B > 65535:
         raise ValueError(f"capture kernel: P={P}, B={B} exceed the grid's y/z limits")
     return CaptureGeometry((-(-npad // per_block), P, B), per_block, per_block * ROW_STRIDE_BYTES)
+
+
+RESELECT_THREADS = 128  # csrc/capture.cu kReselectThreads: queries per block of B2
+RESELECT_STRIDES = (32, 64, 128)  # the way layouts of VoxelHashMap.create: 4, 2 or 1 ways
+
+
+class ReselectGeometry(NamedTuple):
+    grid: Tuple[int, int, int]  # (query blocks, probes, instances)
+    threads: int  # per block; one query per thread
+
+
+def reselect_geometry(B: int, P: int, npad: int) -> ReselectGeometry:
+    """Launch shape of kernel B2 (``reselect_launch`` computes the same)."""
+    if P > 65535 or B > 65535 or B * P * npad >= 1 << 31:
+        raise ValueError(f"reselect kernel: B={B}, P={P}, npad={npad} exceed the grid or 32-bit row indices")
+    return ReselectGeometry((-(-npad // RESELECT_THREADS), P, B), RESELECT_THREADS)
 
 
 def _check(B, n, npad, neighbors, K, voxel_size, epoch, q_live, q_cap, valid, tensors):
@@ -321,7 +364,24 @@ def capture_planar_reselect(
         return capture_planar_reselect_plain(
             rows, voxel_size, epoch, queries_live, queries_cap, neighbors, K, stride, valid
         )
+    launch, result = reselect_launcher(rows, voxel_size, epoch, queries_live, queries_cap, neighbors, K,
+                                       stride, valid)
+    launch()
+    capture_planar_reselect.launches += 1
+    return result()
+
+
+def reselect_launcher(
+    rows, voxel_size, epoch, queries_live, queries_cap, neighbors: int = 8, K: int = 20,
+    stride: int = 32, valid=None,
+):
+    """Check the inputs of kernel B2 and allocate its outputs once; returns
+    ``(launch, result)``: ``launch()`` runs ``reselect_kernel`` on the current
+    stream (it raises on a refused launch), ``result()`` returns the planes of
+    the last launch as :func:`capture_planar_reselect` does."""
     _check_layout(K, stride)
+    if stride not in RESELECT_STRIDES:
+        raise ValueError(f"reselect kernel: stride {stride} is none of {RESELECT_STRIDES}")
     B, P, npad, w = rows.shape
     if w != 128 or P != neighbors or B != queries_live.shape[0]:
         raise ValueError(f"reselect kernel: rows must be (B, P, npad, 128), got {tuple(rows.shape)}")
@@ -329,6 +389,7 @@ def capture_planar_reselect(
     dev = queries_live.device
     valid_u8 = _check(B, n, npad, neighbors, K, voxel_size, epoch, queries_live, queries_cap, valid,
                       (("rows", rows, torch.int32),))
+    reselect_geometry(B, P, npad)
     planes = torch.empty((4, B, 2 * P, npad), dtype=torch.float32, device=dev)
     fn = cuda_build.load("capture").reselect_launch
     if fn.argtypes is None:
@@ -336,15 +397,20 @@ def capture_planar_reselect(
         fn.restype = ctypes.c_int
     inv_vs = (1.0 / voxel_size).contiguous()
     p = cuda_build.ptr
-    err = fn(
-        p(rows), p(voxel_size), p(inv_vs), p(epoch), p(queries_live),
-        p(queries_cap), _opt(valid_u8), *(p(pl) for pl in planes), B, n, npad, P, neighbors, K,
-        stride, int(valid is not None), cuda_build.stream_ptr(dev),
+    argv = (
+        p(rows), p(voxel_size), p(inv_vs), p(epoch), p(queries_live), p(queries_cap), _opt(valid_u8),
+        *(p(pl) for pl in planes), B, n, npad, P, neighbors, K, stride, int(valid is not None),
     )
-    cuda_build.check(err, "reselect_kernel")
-    planes = tuple(planes)
-    capture_planar_reselect.launches += 1
-    return planes
+
+    def launch():
+        cuda_build.check(fn(*argv, cuda_build.stream_ptr(dev)), "reselect_kernel")
+
+    launch.tensors = (rows, voxel_size, inv_vs, epoch, queries_live, queries_cap, valid_u8, planes)
+
+    def result():
+        return tuple(planes)
+
+    return launch, result
 
 
 capture_planar.launches = 0

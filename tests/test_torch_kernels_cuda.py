@@ -8,7 +8,7 @@ inside the test).  On a machine with a GPU and nvcc:
 (``--noconftest``: tests/conftest.py configures JAX, which the GPU machine
 need not have; this file imports nothing of it.)
 
-B1/B2/B4 must equal their twins bit for bit; B3 must agree within 3e-3 on R
+B1/B2/B4 must equal their twins bit for bit (B2 also at its edge cases); B3 must agree within 3e-3 on R
 and t, one iteration and 0.02 quality (reduction order differs), at both of
 its branches (candidate planes in shared memory, and read from global memory
 where a slice's planes do not fit)."""
@@ -31,11 +31,15 @@ def dev():
     return "cuda"
 
 
-def _scene(dev, n=700, seed=0, b=B):
+def _scene(dev, n=700, seed=0, b=B, K=20, slots=1 << 12, dup=False):
+    """A map of ``slots`` slots holding K points per voxel (with ``dup``,
+    each of 1000 points inserted twice) and queries near its surfaces."""
     rng = np.random.default_rng(seed)
     pts = rng.uniform(-8, 8, (b, 4000, 3)).astype(np.float32)
     pts[:, :2000, 2] = 0.0
-    m = vh.VoxelHashMap.create(1 << 12, 20, 1.0, batch=b, device=dev)
+    if dup:
+        pts[:, 2000:3000] = pts[:, 3000:4000]
+    m = vh.VoxelHashMap.create(slots, K, 1.0, batch=b, device=dev)
     m, _ = vh.insert_stats(m, PointCloud.from_xyz(torch.from_numpy(pts).to(dev)))
     local = pts[:, rng.integers(0, 4000, n)] + rng.normal(0, 0.05, (b, n, 3)).astype(np.float32)
     valid = rng.random((b, n)) > 0.1
@@ -65,6 +69,63 @@ def test_capture_kernels_bit_exact(dev, nbr, n, masked):
     kw2 = dict(K=m.K, stride=m.stride, valid=valid)
     for g, r in zip(pc.capture_planar_reselect(*args2, **kw2), pc.capture_planar_reselect_plain(*args2, **kw2)):
         assert torch.equal(g, r)
+
+
+def _reselect_case(dev, case):
+    """B2's arguments for one edge case, on rows B1 gathered at ``q_cap``;
+    returns them with a check that the case holds what it is named for."""
+    n = {"n31": 31, "n31_masked": 31, "n333": 333, "n333_masked": 333}.get(case, 700)
+    K = {"w2_k32": 32, "k10": 10}.get(case, 20)
+    slots = 1 if case == "w1_one_slot" else 1 << 12
+    m, q, valid = _scene(dev, n=n, seed=7, K=K, slots=slots, dup=case == "duplicates")
+    valid = None if case in ("n31", "n333") else valid
+    rows = pc.capture_planar(m.data, m.voxel_size, m.epoch, q, 8, K=m.K, stride=m.stride, valid=valid,
+                             return_rows=True)[4]
+    if case == "across_voxel":
+        live = (q + torch.tensor([0.6, -0.45, 0.3], device=dev)).contiguous()
+    else:
+        live = se3.transform(se3.se3_exp(torch.tensor([0.05, 0.0, -0.02, 0.0, 0.01, 0.0], device=dev).expand(B, 6)), q)
+    epoch = m.epoch + torch.tensor([0, 1, 0], dtype=torch.int32, device=dev) if case == "stale_epoch" else m.epoch
+    args = (rows, m.voxel_size, epoch, live.contiguous(), q, 8)
+    kw = dict(K=m.K, stride=m.stride, valid=valid)
+
+    def holds(planes):
+        cx, cy, cz, cm = planes
+        top1, top2 = (slice(0, 8), slice(8, 16))
+        if case in ("w2_k32", "k10"):
+            return m.stride == (64 if K == 32 else 32) and bool(cm.any())
+        if case == "w1_one_slot":
+            return m.stride == 128 and bool(cm.any())
+        if case == "stale_epoch":  # instance 1: no way matches, nothing live
+            return not bool(cm[1].any()) and bool(cm[0].any())
+        if case == "duplicates":  # both picks on equal words of one voxel
+            same = (cx[:, top1] == cx[:, top2]) & (cy[:, top1] == cy[:, top2]) & (cz[:, top1] == cz[:, top2])
+            return bool((same & (cm[:, top1] > 0) & (cm[:, top2] > 0)).any())
+        if case == "across_voxel":
+            return bool((torch.floor(live) != torch.floor(q)).any(dim=-1).float().mean() > 0.5)
+        return cx.shape[-1] == (128 if n == 31 else 512) and bool(cm.any())
+
+    return args, kw, holds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case",
+    ["w2_k32", "k10", "w1_one_slot", "stale_epoch", "duplicates", "across_voxel", "n31", "n31_masked", "n333",
+     "n333_masked"],
+)
+def test_reselect_kernel_edge_cases(dev, case):
+    """B2 against its twin, bit for bit: 2 ways of 64 words (K = 32), K = 10,
+    one way of 128 words, a stale epoch (way 0 the fallback), duplicate
+    points (d2 ties, the lowest k first), live queries in other voxels than
+    the capture's, N = 31 and 333 with and without a mask."""
+    args, kw, holds = _reselect_case(dev, case)
+    before = pc.capture_planar_reselect.launches
+    got = pc.capture_planar_reselect(*args, **kw)
+    assert pc.capture_planar_reselect.launches == before + 1
+    ref = pc.capture_planar_reselect_plain(*args, **kw)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert holds(ref)
 
 
 def _align_close(got, ref):
@@ -209,13 +270,18 @@ def test_nn_select_kernel_bit_exact(dev, nbr, n):
 
 
 def test_cpu_tensors_take_the_plain_twin():
-    """On the CPU the wrappers (B1, B3, B4) run their twins and count no launch."""
+    """On the CPU the wrappers (B1, B2, B3, B4) run their twins and count no launch."""
     m, q, valid = _scene("cpu")
     before = pc.capture_planar.launches
     out = pc.capture_planar(m.data, m.voxel_size, m.epoch, q, 8, K=m.K, stride=m.stride, valid=valid)
     ref = pc.capture_planar_plain(m.data, m.voxel_size, m.epoch, q, 8, K=m.K, stride=m.stride, valid=valid)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     assert pc.capture_planar.launches == before
+    args, kw, _ = _reselect_case("cpu", "n333_masked")
+    before = pc.capture_planar_reselect.launches
+    out, ref = pc.capture_planar_reselect(*args, **kw), pc.capture_planar_reselect_plain(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert pc.capture_planar_reselect.launches == before
     before = pi.align_fused.launches
     args, kw = _align_setup("cpu", 2, 300, 8, seed=6, maxit=10)
     budget = torch.full((2,), 10, dtype=torch.int32)
