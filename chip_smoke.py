@@ -46,15 +46,34 @@ Phases, one line of numbers each:
                > 0.9, final-pose GT error < 0.20, no reported layer saturated,
                collision drops <= 0.1%, and that B4 launched.  Prints
                iterations, launches per step, scans/s and the peak memory.
+               Before phases 4 and 5 the port's utils/capacity.py sizes both
+               on the same scans (as bench.py does); the sizing must equal
+               SIZING and DUALMAP_SIZING, the JAX package's figures;
+  6. host    — the host API a user calls, one vehicle (B = 1):
+               LidarOdometry.from_yaml_file with capacity auto-sizing over
+               instance 0 of phase 4's scans (lidar3d-default, 8 scans), then
+               lidar3d-dual-map over the first 6; the same guards as phases
+               4-5; the TUM trajectory and simple-map written to a temporary
+               directory and read back (8 and 6 poses).  Prints the derived
+               capacities, the per-scan wall ms (median after warm-up), the
+               host syncs per scan (torch.cuda.set_sync_debug_mode) and the
+               launches of B1-B4.  Then lidar3d-default once more with
+               SIZING as overrides: flags and layer counts must equal phase
+               4's instance 0, poses within 1e-5.  Every kernel call of
+               the last scan of each pipeline is recorded (inputs cloned)
+               and, after the launch counts are read, held against its plain
+               twin at those B = 1 shapes: B1, B2 and B4 bit for bit, B3
+               within phase 3's tolerance.
 
-Then one JSON line describing every kernel (launches summed over both
-paths), the card's name and power limit, and last the JSON result line.  Any
+Then one JSON line describing every kernel (launches summed over phases
+4-6), the card's name and power limit, and last the JSON result line.  Any
 failure raises and exits non-zero.  It imports nothing of JAX and nothing of
 the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -151,6 +170,9 @@ def bound(nbytes: float, flops: float):
 def phase_device():
     import torch
 
+    if not os.path.isdir(os.path.join(HERE, "mola_lidar_odometry_tpu_torch")):
+        raise SystemExit("chip_smoke: the port's package mola_lidar_odometry_tpu_torch is not beside this "
+                         "script; run it from the root of a checkout of the repo")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; the port's smoke run needs a GPU")
     log(f"device: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -594,7 +616,6 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names):
     import torch
 
     from mola_lidar_odometry_tpu_torch.models.spec import spec_from_yaml
-    from mola_lidar_odometry_tpu_torch.ops import se3
     from mola_lidar_odometry_tpu_torch.parallel import batch as pb
     from mola_lidar_odometry_tpu_torch.utils.config import load_yaml_file
 
@@ -628,9 +649,7 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names):
     drops = int(torch.stack([o.map_collision_drops for o in outs]).sum())
     iters = torch.stack([o.iterations for o in outs]).cpu().numpy()
     corr = int(torch.stack([o.corrections for o in outs]).sum())
-    G = lambda k: se3.Pose(torch.tensor(traj.R[k], dtype=torch.float32), torch.tensor(traj.t[k], dtype=torch.float32))  # noqa: E731
-    est = se3.Pose(carry.pose_R[0].cpu(), carry.pose_t[0].cpu())
-    gt_err = float(torch.linalg.norm(se3.se3_log(se3.relative(se3.relative(G(0), G(n_scans - 1)), est))))
+    gt_err = gt_error(traj, n_scans - 1, carry.pose_R[0].cpu(), carry.pose_t[0].cpu())
     icp_cap = sizing["layer_capacities"][spec.icp_local_layer]
     map_cap = sizing["layer_capacities"][spec.map_inserts[0].input_layer]
     warm = 2  # frame 0 seeds the map, frame 1 is the first ICP on it
@@ -662,31 +681,324 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names):
     failures += [f"{k} never launched on the {tag} path" for k in guards["kernels"] if launches[k] <= 0]
     if failures:
         raise AssertionError(f"{tag}: " + "; ".join(failures))
-    return sps, launches
+    return sps, launches, outs
+
+
+MAIN_KERNELS = ("capture_planar", "capture_planar_reselect", "align_fused")
+DUALMAP_KERNELS = ("nn_select",)
+MAIN_GUARDS = dict(min_mean_quality=0.9, max_gt_error=0.20)
+DUALMAP_PIPE = os.path.join("extras", "lidar3d-dual-map.yaml")
+
+
+def phase_sizing(scans):
+    """Size phases 4 and 5 with the port's utils/capacity.py as bench.py
+    does (the first scan's dry pass, the raw buffer fitted to the largest
+    scan of the path) and hold the result against SIZING and
+    DUALMAP_SIZING, the JAX package's figures."""
+    from mola_lidar_odometry_tpu_torch.models.spec import spec_from_yaml
+    from mola_lidar_odometry_tpu_torch.utils.capacity import derive_capacities
+    from mola_lidar_odometry_tpu_torch.utils.config import load_yaml_file
+
+    x0, t0, _, v0 = scans[0]
+    for tag, pipe, n, want in (("main", "lidar3d-default.yaml", N_SCANS, SIZING),
+                               ("dual-map", DUALMAP_PIPE, DUALMAP_SCANS, DUALMAP_SIZING)):
+        spec = spec_from_yaml(load_yaml_file(os.path.join(HERE, "pipelines", pipe), env={}))
+        max_pts = max(int(v.sum()) for _, _, _, v in scans[:n])
+        got = derive_capacities(spec, x0[v0], t0[v0], with_budgets=True, known_max_points=max_pts)
+        got = dict(zip(("raw_capacity", "map_slots", "layer_capacities", "insert_budgets"), got))
+        log(f"sizing: {tag}: port {json.dumps(got)}")
+        log(f"sizing: {tag}: JAX  {json.dumps(want)}")
+        if got != want:
+            raise AssertionError(f"sizing: {tag}: the port's derive_capacities differs from the JAX package's")
+
+
+def gt_error(traj, k, R, t) -> float:
+    """Gauge-aligned SE(3) log-norm error of pose k (relative to frame 0)."""
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.ops import se3
+
+    def G(i):
+        return se3.Pose(torch.tensor(traj.R[i], dtype=torch.float32), torch.tensor(traj.t[i], dtype=torch.float32))
+
+    est = se3.Pose(torch.as_tensor(R, dtype=torch.float32), torch.as_tensor(t, dtype=torch.float32))
+    return float(torch.linalg.norm(se3.se3_log(se3.relative(se3.relative(G(0), G(k)), est))))
+
+
+def _clone(x):
+    """``x`` with every tensor in it (in tuples, named tuples, lists and
+    dicts) cloned."""
+    import torch
+
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_clone(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    return x
+
+
+class _Recorder:
+    """Stands in for a kernel's wrapper in its module: appends (record,
+    args, kwargs), its tensors cloned, to ``calls`` and calls the wrapper.
+    ``launches`` is the wrapper's own count (a wrapper counts through its
+    module-level name, which now names this object)."""
+
+    def __init__(self, wrapper, rec, calls):
+        self._w, self._r, self._calls = wrapper, rec, calls
+
+    def __call__(self, *a, **k):
+        self._calls.append((self._r, _clone(a), _clone(k)))
+        return self._w(*a, **k)
+
+    @property
+    def launches(self):
+        return self._w.launches
+
+    @launches.setter
+    def launches(self, n):
+        self._w.launches = n
+
+
+@contextlib.contextmanager
+def recording(recs, calls):
+    """While open, each kernel's wrapper is replaced in its module by a
+    :class:`_Recorder`: the main path's own calls at its own shapes."""
+    import importlib
+
+    saved = []
+    for r in recs:
+        w = r["wrapper"]
+        mod = importlib.import_module(w.__module__)
+        saved.append((mod, w.__name__, w))
+        setattr(mod, w.__name__, _Recorder(w, r, calls))
+    try:
+        yield calls
+    finally:
+        for mod, name, w in saved:
+            setattr(mod, name, w)
+
+
+def check_recorded(tag, calls, kernels):
+    """Each kernel call recorded from the host path against its plain twin
+    on the same inputs, at the path's B = 1 shapes: B1, B2 and B4 bit for
+    bit, B3 within ``B3_TOL``.  Raises the record's ``max_abs_err`` to the
+    largest error seen."""
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.ops import pallas_capture as pc, pallas_icp as pi, pallas_match as pm
+
+    plain = {"capture_planar": pc.capture_planar_plain, "capture_planar_reselect": pc.capture_planar_reselect_plain,
+             "align_fused": pi.align_fused_plain, "nn_select": pm.nn_select_plain}
+    done = {}
+    for r, a, k in calls:
+        name = r["name"]
+        got, ref = r["wrapper"](*a, **k), plain[name](*a, **k)
+        torch.cuda.synchronize()
+        if name == "align_fused":
+            err = check_align(f"{tag}: B3 at the host path's shapes", got, ref)
+        else:
+            for i, (g, w) in enumerate(zip(got, ref)):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{tag}: {name} output {i} at the host path's shapes differs from its "
+                                         f"plain twin in {int((g != w).sum())} elements")
+            err = max_err(got, ref)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        n, e, shapes = done.get(name, (0, 0.0, set()))
+        done[name] = (n + 1, max(e, err), shapes | {"x".join(map(str, got[0].shape))})
+    for name, (n, e, shapes) in done.items():
+        log(f"{tag}: {name} vs plain over {n} call(s) of the last scan, outputs {sorted(shapes)}: "
+            f"{'within tolerance' if name == 'align_fused' else 'bit-exact'}, max |d| {e:.3g}")
+    missing = [k for k in kernels if k not in done]
+    if missing:
+        raise AssertionError(f"{tag}: no call of {missing} recorded on the last scan")
+
+
+def run_host(dev, tag, pipe, scans, traj, guards, count_syncs=False, record=None, **overrides):
+    """One vehicle through ``LidarOdometry`` (the user's entry point), with
+    the same guards as phases 4-5.  With ``count_syncs`` every synchronizing
+    CUDA call warns (``torch.cuda.set_sync_debug_mode``) and is counted per
+    scan and, for the last scan, per call site.  ``record``, a context
+    manager, is open around the last scan.  Returns (the instance, the host
+    outputs, wall seconds per scan, syncs per scan, call sites)."""
+    import collections
+    import warnings
+
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.models.odometry import LidarOdometry
+
+    lo = LidarOdometry.from_yaml_file(os.path.join(HERE, "pipelines", pipe), env={}, device=dev,
+                                      kf_ring_capacity=256, **overrides)
+    outs, secs, syncs, sites = [], [], [], collections.Counter()
+    for k, (xyz, times, rings, valid) in enumerate(scans):
+        last = k == len(scans) - 1
+        with record if record is not None and last else contextlib.nullcontext(), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn" if count_syncs else 0)
+            try:
+                t1 = time.time()
+                outs.append(lo.on_lidar_scan(xyz[valid], traj.stamps[k], times=times[valid], ring=rings[valid]))
+                secs.append(time.time() - t1)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        hits = [w for w in caught if "synchroniz" in str(w.message)]
+        syncs.append(len(hits))
+        if last:
+            sites.update(f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in hits)
+    spec = lo.spec
+    q = np.array([float(o.quality) for o in outs])
+    accepted = np.array([bool(o.accepted) for o in outs])
+    nicp = max(int(o.n_icp_layer) for o in outs)
+    nmap = max(int(o.n_map_layer) for o in outs)
+    icp_cap = spec.layer_capacities[spec.icp_local_layer]
+    map_cap = spec.layer_capacities[spec.map_inserts[0].input_layer]
+    err = gt_error(traj, len(scans) - 1, outs[-1].pose_R, outs[-1].pose_t)
+    log(f"{tag}: iterations per scan {[int(o.iterations) for o in outs]}; mean quality (scans > 0) "
+        f"{q[1:].mean():.4f}; final-pose GT error {err:.4f}; icp layer max {nicp}/{icp_cap}; "
+        f"map layer max {nmap}/{map_cap}")
+    failures = []
+    if not accepted[1:].all():
+        failures.append(f"scans not accepted: {np.flatnonzero(~accepted).tolist()}")
+    if not q[1:].mean() > guards["min_mean_quality"]:
+        failures.append(f"mean quality {q[1:].mean():.3f} <= {guards['min_mean_quality']}")
+    if not err < guards["max_gt_error"]:
+        failures.append(f"final-pose GT error {err:.3f} >= {guards['max_gt_error']}")
+    if not (nicp < icp_cap and nmap < map_cap):
+        failures.append(f"a layer saturated (icp {nicp}/{icp_cap}, map {nmap}/{map_cap})")
+    if failures:
+        raise AssertionError(f"{tag}: " + "; ".join(failures))
+    return lo, outs, secs, syncs, sites
+
+
+def check_fma(dev):
+    """The port rounds its rotations as fused multiply-adds
+    (``se3.fma_f32``: ``torch.addcmul`` on CUDA, an exact emulation on the
+    CPU); hold the card's against the emulation on 2^20 triples, a quarter
+    of them on float32 halfway points."""
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.ops import se3
+
+    rng = np.random.default_rng(9)
+    n = 1 << 20
+    a, b = (rng.normal(0, 1, n).astype(np.float32) for _ in range(2))
+    c = (rng.normal(0, 1, n) * 10.0 ** rng.integers(-9, 9, n)).astype(np.float32)
+    p32 = (a.astype(np.float64) * b).astype(np.float32)
+    c[: n // 4] = -p32[: n // 4] + (np.spacing(p32[: n // 4]) / 2).astype(np.float32)
+    t = [torch.from_numpy(x) for x in (a, b, c)]
+    got = se3.fma_f32(*(x.to(dev) for x in t)).cpu()
+    want = se3.fma_f32_emulated(*t)
+    bad = int((got != want).sum())
+    log(f"host: fused multiply-add on the card (torch.addcmul) vs the exact emulation: {bad} of {n} differ "
+        f"({int((want != t[0] * t[1] + t[2]).sum())} differ from the unfused a * b + c)")
+    if bad:
+        raise AssertionError("se3.fma_f32 on the card is not the exactly rounded multiply-add")
+
+
+def phase_host(dev, recs, scans, traj, main_outs):
+    """Phase 6: the host API on the card, one vehicle; returns each kernel's
+    launches in this phase."""
+    import tempfile
+
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.models.spec import SimpleMapCfg
+    from mola_lidar_odometry_tpu_torch.utils import serialization, tum
+
+    card = torch.cuda.get_device_name(0)
+    check_fma(dev)
+    keep_all = SimpleMapCfg(generate=True, add_non_keyframes_too=True)  # a simple-map entry per scan
+    for r in recs:
+        r["wrapper"].launches = 0
+    warm = 2  # scan 0 sizes the buffers and seeds the map, scan 1 is the first ICP on it
+    recorded = []  # (tag, kernel calls of the last scan, the path's kernels)
+    for tag, pipe, n, guards, kernels in (
+        ("host", "lidar3d-default.yaml", N_SCANS, MAIN_GUARDS, MAIN_KERNELS),
+        ("host dual-map", DUALMAP_PIPE, DUALMAP_SCANS, DUALMAP_GUARDS, DUALMAP_KERNELS),
+    ):
+        before = {r["name"]: r["wrapper"].launches for r in recs}
+        lo, outs, secs, _, _ = run_host(dev, tag, pipe, scans[:n], traj, guards, simplemap=keep_all)
+        here = {r["name"]: r["wrapper"].launches - before[r["name"]] for r in recs}
+        spec = lo.spec
+        log(f"{tag}: derived capacities raw={spec.raw_capacity} slots={[d.num_slots for d in spec.map_layers]} "
+            f"layers={json.dumps(spec.layer_capacities)} budgets={[d.insert_budget for d in spec.map_layers]}")
+        med = float(np.median(secs[warm:])) * 1e3
+        spans = {k: 1e3 * float(np.median(lo.profiler.times(f"onLidar.{k}")[warm:])) for k in ("pad", "step", "readback")}
+        log(f"{tag}: per-scan wall ms {[round(1e3 * s, 2) for s in secs]}; median over scans {warm}..{n - 1} "
+            f"{med:.2f} ms ({1e3 / med:.1f} scans/s, B=1) on {card}; of it (medians) " +
+            ", ".join(f"{k} {v:.2f} ms" for k, v in spans.items()))
+        log(f"{tag}: launches " + ", ".join(f"{k}={v} ({v / n:.2f}/scan)" for k, v in here.items()))
+        never = [k for k in kernels if here[k] <= 0]
+        if never:
+            raise AssertionError(f"{tag}: {never} never launched")
+        with tempfile.TemporaryDirectory() as tmp:
+            lo.save_trajectory_tum(os.path.join(tmp, "traj.tum"))
+            lo.save_simplemap(os.path.join(tmp, "map.simplemap"))
+            stamps, _, _ = tum.load_tum(os.path.join(tmp, "traj.tum"))
+            sm = serialization.load_simplemap(os.path.join(tmp, "map.simplemap"))
+        log(f"{tag}: TUM trajectory {len(stamps)} poses, simple-map {len(sm)} keyframes "
+            f"({sum(kf.scan_xyz is not None for kf in sm)} with their scan), read back")
+        if len(stamps) != n or len(sm) != n:
+            raise AssertionError(f"{tag}: wrote {len(stamps)} poses and {len(sm)} keyframes, expected {n}")
+        # the same scans again, counting the host syncs (the warnings cost
+        # time) and recording the last scan's kernel calls (cloning costs time)
+        calls = []
+        _, _, _, syncs, sites = run_host(dev, f"{tag} (syncs)", pipe, scans[:n], traj, guards, count_syncs=True,
+                                         record=recording(recs, calls))
+        recorded.append((tag, calls, kernels))
+        log(f"{tag}: host syncs per scan {syncs}; last scan's by call site: " +
+            ", ".join(f"{k} x{v}" for k, v in sites.most_common()))
+
+    # the fixed sizing of phase 4 through the host API: instance 0 of phase 4
+    _, outs, secs, _, _ = run_host(dev, "host fixed sizing", "lidar3d-default.yaml", scans, traj, MAIN_GUARDS, **SIZING)
+    fields = ("processed", "accepted", "kf_local", "kf_simplemap", "n_raw", "n_icp_layer", "n_map_layer",
+              "corrections", "iterations", "map_collision_drops", "map_full_drops", "deferred_drops")
+    worst = 0.0
+    for k, (o, ref) in enumerate(zip(outs, main_outs)):
+        for f in fields:
+            want = getattr(ref, f)[0].cpu().numpy()
+            if not np.array_equal(getattr(o, f), want):
+                raise AssertionError(f"host fixed sizing: {f} at scan {k}: {getattr(o, f)} != phase 4's {want}")
+        for f in ("pose_R", "pose_t"):
+            worst = max(worst, float(np.abs(getattr(o, f) - getattr(ref, f)[0].cpu().numpy()).max()))
+    log(f"host fixed sizing: flags and layer counts equal phase 4's instance 0 over {len(outs)} scans; "
+        f"largest pose difference {worst:.3g} (limit 1e-5); median {1e3 * float(np.median(secs[warm:])):.2f} ms "
+        f"per scan")
+    if not worst <= 1e-5:
+        raise AssertionError(f"host fixed sizing: pose differs from phase 4's instance 0 by {worst}")
+    launches = {r["name"]: r["wrapper"].launches for r in recs}
+    for tag, calls, kernels in recorded:  # after the counts are read: these launches do not count
+        check_recorded(tag, calls, kernels)
+    return launches
 
 
 def phase_paths(dev, recs):
-    """Phases 4 and 5 over one simulated sequence; fills ``launches`` of every
-    record with the sum over both paths."""
+    """Phases 4, 5 and 6 over one simulated sequence; fills ``launches`` of
+    every record with the sum over the three."""
     t0 = time.time()
     scans, traj = bench_scans(N_SCANS)
     log(f"main: simulated {N_SCANS} scans of {len(scans[0][0])} rays in {time.time() - t0:.1f} s (host)")
-    _, main_l = run_fleet(
-        dev, recs, "main", "lidar3d-default.yaml", SIZING, scans, traj,
-        dict(min_mean_quality=0.9, max_gt_error=0.20,
-             kernels=("capture_planar", "capture_planar_reselect", "align_fused")),
+    phase_sizing(scans)
+    _, main_l, main_outs = run_fleet(
+        dev, recs, "main", "lidar3d-default.yaml", SIZING, scans, traj, dict(MAIN_GUARDS, kernels=MAIN_KERNELS),
         ("localmap",),
     )
-    _, dual_l = run_fleet(
-        dev, recs, "dual-map", os.path.join("extras", "lidar3d-dual-map.yaml"), DUALMAP_SIZING,
-        scans[:DUALMAP_SCANS], traj, dict(DUALMAP_GUARDS, kernels=("nn_select",)), ("localmap", "localmap_far"),
+    _, dual_l, _ = run_fleet(
+        dev, recs, "dual-map", DUALMAP_PIPE, DUALMAP_SIZING,
+        scans[:DUALMAP_SCANS], traj, dict(DUALMAP_GUARDS, kernels=DUALMAP_KERNELS), ("localmap", "localmap_far"),
     )
+    host_l = phase_host(dev, recs, scans, traj, main_outs)
     for r in recs:
-        r["launches"] = main_l[r["name"]] + dual_l[r["name"]]
+        r["launches"] = main_l[r["name"]] + dual_l[r["name"]] + host_l[r["name"]]
         del r["wrapper"]
     never = [r["name"] for r in recs if r["launches"] <= 0]
     if never:
-        raise AssertionError(f"kernels never launched on either path: {never}")
+        raise AssertionError(f"kernels never launched on any path: {never}")
 
 
 def main():

@@ -16,7 +16,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from mola_lidar_odometry_tpu_torch.ops import filters as F
-from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud
+from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud, on_device
 from mola_lidar_odometry_tpu_torch.utils.config import as_bool, as_str
 from mola_lidar_odometry_tpu_torch.utils.expr import Expr, as_expr
 
@@ -25,7 +25,7 @@ def _col(values, like: torch.Tensor) -> torch.Tensor:
     """Stack per-instance scalars (floats or (B,) tensors) into (B, k)."""
     B, dev = like.shape[0], like.device
     return torch.stack(
-        [torch.as_tensor(v, dtype=torch.float32, device=dev).expand(B) for v in values], dim=-1
+        [on_device(v, torch.float32, dev).expand(B) for v in values], dim=-1
     )
 
 

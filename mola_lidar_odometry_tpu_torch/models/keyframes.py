@@ -59,8 +59,7 @@ def check(ring: PoseRing, pose: Pose, *, from_last_only: bool = False) -> Tuple[
         d2 = torch.sum((ring.t - pose.t[:, None]) ** 2, dim=-1)
         sel = torch.argmin(torch.where(ring.valid, d2, float("inf")), dim=-1)
     dt, dr = se3.pose_error_norms(Pose(ring.R[bi, sel], ring.t[bi, sel]), pose)
-    inf = torch.tensor(float("inf"), device=dt.device)
-    return is_first, torch.where(is_first, inf, dt), torch.where(is_first, inf, dr)
+    return is_first, torch.where(is_first, float("inf"), dt), torch.where(is_first, float("inf"), dr)
 
 
 def remove_farther_than(ring: PoseRing, center: torch.Tensor, distance) -> PoseRing:

@@ -15,6 +15,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from mola_lidar_odometry_tpu_torch.ops import se3
+from mola_lidar_odometry_tpu_torch.ops.pointcloud import on_device
 from mola_lidar_odometry_tpu_torch.ops.se3 import Pose
 from mola_lidar_odometry_tpu_torch.ops.solver import PosePrior
 
@@ -130,10 +131,10 @@ def estimate(buf: NavStateBuffer, cfg: NavStateConfig, t_query: torch.Tensor) ->
     wsum = torch.sum(w, dim=-1, keepdim=True)
     have_pairs = wsum > 0
     wn = w / torch.where(have_pairs, wsum, 1.0)
-    init_tw = torch.tensor(cfg.initial_twist, dtype=torch.float32, device=dev)
+    init_tw = on_device(list(cfg.initial_twist), torch.float32, dev)
     sl = max(cfg.initial_twist_sigma_lin, 1e-6)
     sa = max(cfg.initial_twist_sigma_ang, 1e-6)
-    w0 = torch.tensor([1.0 / sl**2] * 3 + [1.0 / sa**2] * 3, dtype=torch.float32, device=dev)
+    w0 = on_device([1.0 / sl**2] * 3 + [1.0 / sa**2] * 3, torch.float32, dev)
     rob2 = cfg.robust_param * cfg.robust_param
     rw = torch.ones_like(wn)
     twist = init_tw.expand(times.shape[0], 6)

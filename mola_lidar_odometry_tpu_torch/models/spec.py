@@ -13,13 +13,11 @@ by default (per-voxel top-2 capture, fused two-phase align, refresh by
 reselect, 8 probes for single-matcher configs), the insert budget follows
 the "auto" rule, and capacities come from the caller.
 
-The spec holds only what the fleet step reads.  The reference's host-side
-block (sensor labels, the worker queue, multi-LiDAR merging, trajectory and
-debug-trace files, map loading and saving, ``start_active``) belongs to the
-``LidarOdometry`` host API, not ported yet (ROADMAP queue A): the port's
-entry point takes scans directly, so labels and the queue bound have nothing
-to act on, and a YAML that asks for one of the other host effects raises
-``NotImplementedError`` instead of being ignored.
+The reference's host-side block (sensor labels, the worker queue,
+multi-LiDAR merging, trajectory and debug-trace files, map loading and
+saving, lazy-load scan files, ``start_active``) is parsed as in the JAX
+package; ``models/odometry.py`` (``LidarOdometry``) and ``utils/runtime.py``
+(``AsyncLidarOdometry``) act on it.
 """
 
 from __future__ import annotations
@@ -55,6 +53,7 @@ class LocalMapUpdatesCfg:
     max_distance_to_keep_keyframes: Expr = field(default_factory=lambda: Expr("0"))
     check_for_removal_every_n: int = 100
     measure_from_last_kf_only: bool = False
+    load_existing_local_map: str = ""
 
 
 @dataclass(frozen=True)
@@ -64,6 +63,10 @@ class SimpleMapCfg:
     min_rotation_between_keyframes_deg: Expr = field(default_factory=lambda: Expr("15"))
     add_non_keyframes_too: bool = False
     measure_from_last_kf_only: bool = False
+    save_gnss_max_age: float = 1.0
+    generate_lazy_load_scan_files: bool = False
+    save_final_map_to_file: str = "final_map.simplemap"
+    load_existing_simple_map: str = ""
 
 
 @dataclass(frozen=True)
@@ -141,6 +144,20 @@ class OdometrySpec:
 
     # KF ring capacities
     kf_ring_capacity: int = 512
+
+    # host-side dispatch / IO options (reference Parameters top block)
+    lidar_sensor_labels: Tuple[str, ...] = ("lidar",)
+    imu_sensor_label: str = "imu"
+    wheel_odometry_sensor_label: str = "odometry"
+    gnss_sensor_label: str = "gps"
+    multiple_lidar_count: int = 1
+    multiple_lidar_max_time_offset: float = 0.1
+    max_worker_thread_queue_before_drop: int = 500
+    save_trajectory: bool = False
+    trajectory_output_file: str = "estimated_trajectory.tum"
+    debug_traces_save: bool = False
+    debug_traces_file: str = "mola-lo-traces.csv"
+    start_active: bool = True
 
 
 def _icp_from_yaml(block: dict, spec_hook: Tuple[float, float]) -> Tuple[IcpConfig, str]:
@@ -229,41 +246,6 @@ def _icp_from_yaml(block: dict, spec_hook: Tuple[float, float]) -> Tuple[IcpConf
     return cfg, mcfgs[0].local_layer
 
 
-def _reject_host_effects(params: dict) -> None:
-    """Raise for reference options whose effect lives in the unported host
-    API: merging several LiDARs, writing trajectory or trace files, loading
-    or saving maps, starting paused."""
-
-    def sub(key):
-        return params.get(key, {}) or {}
-
-    def on(block, key):
-        return as_bool(block.get(key), default=False)
-
-    def named(block, key):
-        return bool(as_str(block.get(key, "")))
-
-    lm, sm = sub("local_map_updates"), sub("simplemap")
-    asked = {
-        "multiple_lidars.lidar_count > 1": int(float(sub("multiple_lidars").get("lidar_count", 1))) > 1,
-        "estimated_trajectory.save_to_file": on(sub("estimated_trajectory"), "save_to_file"),
-        "debug_traces.save_to_file": on(sub("debug_traces"), "save_to_file"),
-        "start_active: false": not as_bool(params.get("start_active"), default=True),
-        "local_map_updates.load_existing_local_map": named(lm, "load_existing_local_map"),
-        "simplemap.load_existing_simple_map": named(sm, "load_existing_simple_map"),
-        "simplemap.generate_lazy_load_scan_files": on(sm, "generate_lazy_load_scan_files"),
-        "simplemap.generate with save_final_map_to_file": (
-            on(sm, "generate") and named(sm, "save_final_map_to_file")
-        ),
-    }
-    bad = [k for k, hit in asked.items() if hit]
-    if bad:
-        raise NotImplementedError(
-            f"{', '.join(bad)}: host-side options of the LidarOdometry API, "
-            "not ported yet (ROADMAP queue A, 'LidarOdometry host API')"
-        )
-
-
 def _map_layers_from_yaml(gen_list, num_slots: int) -> Tuple[MapLayerDef, ...]:
     """Parse the ``localmap_generator`` list into per-layer map definitions."""
     if not gen_list:
@@ -284,7 +266,6 @@ def spec_from_yaml(cfg: dict, **overrides) -> OdometrySpec:
     the reference's apps/mola-lidar-odometry-cli.cpp:391-399).
     """
     params = cfg.get("params", {}) or {}
-    _reject_host_effects(params)
 
     raw_capacity = int(overrides.pop("raw_capacity", 1 << 17))
     num_slots = int(overrides.pop("map_slots", 1 << 18))
@@ -308,7 +289,10 @@ def spec_from_yaml(cfg: dict, **overrides) -> OdometrySpec:
     lm = params.get("local_map_updates", {}) or {}
     sm = params.get("simplemap", {}) or {}
     at = params.get("adaptive_threshold", {}) or {}
+    ml = params.get("multiple_lidars", {}) or {}
     ovc = params.get("observation_validity_checks", {}) or {}
+    est_traj = params.get("estimated_trajectory", {}) or {}
+    traces = params.get("debug_traces", {}) or {}
     init_loc = cfg.get("initial_localization", {}) or {}
 
     # filter pipelines
@@ -361,6 +345,10 @@ def spec_from_yaml(cfg: dict, **overrides) -> OdometrySpec:
         new_layers.append(d)
     map_layers = tuple(new_layers)
 
+    labels = params.get("lidar_sensor_labels", ["lidar"])
+    if isinstance(labels, str):
+        labels = [labels]
+
     fixed_pose = tuple(
         float(as_float(x)) for x in init_loc.get("fixed_initial_pose", [0.0] * 6)
     )
@@ -390,6 +378,7 @@ def spec_from_yaml(cfg: dict, **overrides) -> OdometrySpec:
             max_distance_to_keep_keyframes=as_expr(lm.get("max_distance_to_keep_keyframes", 0.0)),
             check_for_removal_every_n=int(float(lm.get("check_for_removal_every_n", 100))),
             measure_from_last_kf_only=as_bool(lm.get("measure_from_last_kf_only"), default=False),
+            load_existing_local_map=as_str(lm.get("load_existing_local_map", "")),
         ),
         navstate=NavStateConfig.from_yaml(cfg.get("navstate_fuse_params", {}) or {}),
         adaptive_threshold=AdaptiveThresholdCfg(
@@ -416,6 +405,10 @@ def spec_from_yaml(cfg: dict, **overrides) -> OdometrySpec:
             min_rotation_between_keyframes_deg=as_expr(sm.get("min_rotation_between_keyframes", 15.0)),
             add_non_keyframes_too=as_bool(sm.get("add_non_keyframes_too"), default=False),
             measure_from_last_kf_only=as_bool(sm.get("measure_from_last_kf_only"), default=False),
+            save_gnss_max_age=as_float(sm.get("save_gnss_max_age"), 1.0),
+            generate_lazy_load_scan_files=as_bool(sm.get("generate_lazy_load_scan_files"), default=False),
+            save_final_map_to_file=as_str(sm.get("save_final_map_to_file", "final_map.simplemap")),
+            load_existing_simple_map=as_str(sm.get("load_existing_simple_map", "")),
         ),
         observation_validity=ObservationValidityCfg(
             enabled=as_bool(ovc.get("enabled"), default=False),
@@ -426,6 +419,18 @@ def spec_from_yaml(cfg: dict, **overrides) -> OdometrySpec:
             enabled=as_bool(init_loc.get("enabled"), default=False),
             fixed_initial_pose=fixed_pose,
         ),
+        lidar_sensor_labels=tuple(as_str(x) for x in labels),
+        imu_sensor_label=as_str(params.get("imu_sensor_label", "imu")),
+        wheel_odometry_sensor_label=as_str(params.get("wheel_odometry_sensor_label", "odometry")),
+        gnss_sensor_label=as_str(params.get("gnss_sensor_label", "gps")),
+        multiple_lidar_count=int(float(ml.get("lidar_count", 1))),
+        multiple_lidar_max_time_offset=as_float(ml.get("max_time_offset"), 0.1),
+        max_worker_thread_queue_before_drop=int(float(params.get("max_worker_thread_queue_before_drop", 500))),
+        save_trajectory=as_bool(est_traj.get("save_to_file"), default=False),
+        trajectory_output_file=as_str(est_traj.get("output_file", "estimated_trajectory.tum")),
+        debug_traces_save=as_bool(traces.get("save_to_file"), default=False),
+        debug_traces_file=as_str(traces.get("output_file", "mola-lo-traces.csv")),
+        start_active=as_bool(params.get("start_active"), default=True),
     )
     if overrides:
         from dataclasses import replace

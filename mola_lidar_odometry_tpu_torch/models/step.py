@@ -37,7 +37,7 @@ from mola_lidar_odometry_tpu_torch.models import keyframes, navstate as ns
 from mola_lidar_odometry_tpu_torch.models.filter_graph import apply_pipeline, deskew_ops
 from mola_lidar_odometry_tpu_torch.models.spec import OdometrySpec
 from mola_lidar_odometry_tpu_torch.ops import icp as icp_ops, maps as maps_ops, se3
-from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud
+from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud, on_device
 from mola_lidar_odometry_tpu_torch.ops.se3 import Pose
 from mola_lidar_odometry_tpu_torch.ops.solver import PosePrior
 from mola_lidar_odometry_tpu_torch.ops.voxel_hash import InsertStats, VoxelHashMap
@@ -186,7 +186,7 @@ def _model_error(rel: Pose, max_range) -> torch.Tensor:
 
 
 def _as_batch(v, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32, device=like.device).expand(like.shape[0])
+    return on_device(v, torch.float32, like.device).expand(like.shape[0])
 
 
 def make_step(spec: OdometrySpec) -> Callable[[Carry, Scan], Tuple[Carry, StepOutput]]:
@@ -210,7 +210,7 @@ def make_step(spec: OdometrySpec) -> Callable[[Carry, Scan], Tuple[Carry, StepOu
         )
         prior = nav_est.prior
         if spec.pin_se2:
-            pin = torch.diag(torch.tensor([0, 0, 1e6, 1e6, 1e6, 0], dtype=torch.float32, device=c.pose_t.device))
+            pin = torch.diag(on_device([0, 0, 1e6, 1e6, 1e6, 0], torch.float32, c.pose_t.device))
             prior = PosePrior(mean=Pose(init_pose.R, init_pose.t), info=prior.info + pin)
         last_kf_pose = Pose(c.pose_R, c.pose_t)
         matcher_layers = sorted({mc.local_layer for cc in (cfg, cfg_nomm) for mc in cc.matchers})

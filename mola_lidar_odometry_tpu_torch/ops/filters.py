@@ -129,9 +129,8 @@ def filter_bounding_box(pc: PointCloud, bb_min, bb_max) -> Tuple[PointCloud, Poi
 
 def adjust_timestamps(pc: PointCloud, *, method: str = "MiddleIsZero", offset=0.0) -> PointCloud:
     """Shift per-point timestamps (FilterAdjustTimestamps)."""
-    inf = torch.tensor(float("inf"), device=pc.time.device)
-    tmin = torch.amin(torch.where(pc.valid, pc.time, inf), dim=-1)
-    tmax = torch.amax(torch.where(pc.valid, pc.time, -inf), dim=-1)
+    tmin = torch.amin(torch.where(pc.valid, pc.time, float("inf")), dim=-1)
+    tmax = torch.amax(torch.where(pc.valid, pc.time, -float("inf")), dim=-1)
     any_valid = torch.any(pc.valid, dim=-1)
     tmin = torch.where(any_valid, tmin, 0.0)
     tmax = torch.where(any_valid, tmax, 0.0)
@@ -153,5 +152,7 @@ def deskew(pc: PointCloud, twist: torch.Tensor, *, skip: bool = False) -> PointC
     v, w = twist[:, None, :3], twist[:, None, 3:]
     dt = pc.time[..., None]
     Rp = se3.so3_exp(w * dt)  # (B, N, 3, 3)
-    xyz = torch.einsum("bnij,bnj->bni", Rp, pc.xyz) + v * dt
+    # XLA fuses ``+ v * dt`` into the rotation's last multiply-add
+    rot = se3.dot3(Rp, pc.xyz[..., None, :])
+    xyz = se3.fma_f32(v.expand_as(rot), dt.expand_as(rot), rot)
     return pc._replace(xyz=torch.where(pc.valid[..., None], xyz, pc.xyz))

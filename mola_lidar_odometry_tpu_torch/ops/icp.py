@@ -40,6 +40,7 @@ import torch
 
 from mola_lidar_odometry_tpu_torch.ops import maps as maps_ops, pallas_capture, pallas_icp, pallas_match, se3
 from mola_lidar_odometry_tpu_torch.ops.filters import voxel_coords, voxel_hash
+from mola_lidar_odometry_tpu_torch.ops.pointcloud import on_device
 from mola_lidar_odometry_tpu_torch.ops.se3 import Pose
 from mola_lidar_odometry_tpu_torch.ops.solver import (
     PairingBlock,
@@ -133,7 +134,7 @@ def _table(expr: Expr, env: Dict[str, object], B: int, maxit: int, device) -> to
     """Evaluate a per-iteration expression into a (B, maxit) f32 table."""
     env_vec = {k: v[:, None] if torch.is_tensor(v) and v.dim() == 1 else v for k, v in env.items()}
     env_vec["ICP_ITERATION"] = torch.arange(maxit, dtype=torch.float32, device=device)[None, :]
-    val = torch.as_tensor(expr(env_vec), dtype=torch.float32, device=device)
+    val = on_device(expr(env_vec), torch.float32, device)
     return val.expand(B, maxit).contiguous()
 
 
@@ -233,7 +234,7 @@ def _matcher_blocks(
     n_local = torch.zeros((B,), dtype=torch.float32, device=dev)
     for mc, cand in zip(cfg.matchers, candsets):
         xyz, valid = layers[mc.local_layer]
-        thr = torch.as_tensor(mc.threshold(env_it), dtype=torch.float32, device=dev).expand(B)[:, None]
+        thr = on_device(mc.threshold(env_it), torch.float32, dev).expand(B)[:, None]
         if mc.threshold_angular_deg > 0:
             # the threshold grows with the local point's sensor range
             thr = thr + torch.linalg.norm(xyz, dim=-1) * math.sin(math.radians(mc.threshold_angular_deg))
@@ -414,7 +415,7 @@ def align(
     B, dev = xyz.shape[0], xyz.device
     if max_iterations is None:
         max_iterations = cfg.max_iterations
-    budget = torch.as_tensor(max_iterations, dtype=torch.int32, device=dev).expand(B).contiguous()
+    budget = on_device(max_iterations, torch.int32, dev).expand(B).contiguous()
     hook_on = cfg.hook_min_trans > 0 or cfg.hook_min_rot > 0
     m0 = maps.get(mc0.global_layer)
     fused = (

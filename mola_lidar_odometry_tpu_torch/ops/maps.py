@@ -14,7 +14,7 @@ from dataclasses import dataclass, field
 import torch
 
 from mola_lidar_odometry_tpu_torch.ops import pallas_match, voxel_hash
-from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud
+from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud, on_device
 from mola_lidar_odometry_tpu_torch.utils.expr import Expr, as_expr
 
 _POINT_CLASSES = (
@@ -99,7 +99,7 @@ def clear(state):
 
 def set_voxel_size(state, voxel_size):
     _check(state)
-    vs = torch.as_tensor(voxel_size, dtype=torch.float32, device=state.data.device)
+    vs = on_device(voxel_size, torch.float32, state.data.device)
     return state._replace(voxel_size=vs.expand(state.data.shape[0]).contiguous())
 
 
@@ -130,3 +130,10 @@ def match_p2p2(candset, queries, valid):
 
 def match_p2pl(candset, queries, valid, **_):
     raise _not_ported("point-to-plane matching (Matcher_Point2Plane)")
+
+
+def as_pointcloud(state, capacity: int, anchor) -> PointCloud:
+    """Flatten a map layer to a point view (``voxel_hash.as_pointcloud``,
+    the wrapped keys unwrapped near ``anchor`` (B, 3), the robot pose)."""
+    _check(state)
+    return voxel_hash.as_pointcloud(state, capacity, anchor)

@@ -46,7 +46,7 @@ import torch
 
 from mola_lidar_odometry_tpu_torch.ops import cuda_build
 from mola_lidar_odometry_tpu_torch.ops.filters import _wrap_i32, voxel_coords, voxel_hash
-from mola_lidar_odometry_tpu_torch.ops.pointcloud import gather_rows
+from mola_lidar_odometry_tpu_torch.ops.pointcloud import gather_rows, on_device
 from mola_lidar_odometry_tpu_torch.ops.voxel_hash import _CORNERS8, _FACES4, _OFFS27, neighbor_coords
 
 BIG = 3.4e38
@@ -67,11 +67,11 @@ def _npad(n: int, tile_q: int) -> int:
 def _probe_offsets(neighbors: int, device) -> Tuple[torch.Tensor, bool]:
     """(P, 3) f32 probe offsets and whether they flip with the query octant."""
     if neighbors == 27:
-        return torch.tensor(_OFFS27, dtype=torch.float32, device=device), False
+        return on_device(_OFFS27, torch.float32, device), False
     if neighbors == 8:
-        return torch.tensor(_CORNERS8, dtype=torch.float32, device=device), True
+        return on_device(_CORNERS8, torch.float32, device), True
     if neighbors == 4:
-        return torch.tensor(_FACES4, dtype=torch.float32, device=device), True
+        return on_device(_FACES4, torch.float32, device), True
     if neighbors == 1:
         return torch.zeros((1, 3), dtype=torch.float32, device=device), False
     raise ValueError(f"neighbors must be 1, 4, 8 or 27, got {neighbors}")

@@ -9,9 +9,35 @@ written out, a per-instance row gather is one advanced-indexing op.
 
 from __future__ import annotations
 
+import numbers
 from typing import Dict, NamedTuple
 
 import torch
+
+
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+_MAX_CONSTANTS = 512
+
+
+def on_device(v, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.as_tensor(v, dtype, device)`` with no host-to-device copy
+    once a value has been seen: a Python number is filled on the device, a
+    tensor is converted, and a list (the probe offsets, per-spec weights) is
+    copied to the device the first time its values occur on that device and
+    shared from then on.  A list's tensor is shared: callers must not write
+    into it."""
+    if torch.is_tensor(v):
+        return v.to(device=device, dtype=dtype)
+    if isinstance(v, numbers.Number):
+        return torch.full((), v, dtype=dtype, device=device)
+    host = torch.tensor(v, dtype=dtype)
+    key = (dtype, str(device), tuple(host.shape), tuple(host.flatten().tolist()))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        if len(_CONSTANTS) >= _MAX_CONSTANTS:
+            _CONSTANTS.clear()
+        t = _CONSTANTS[key] = host.to(device)
+    return t
 
 
 def gather_rows(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -80,7 +80,7 @@ def _hat_sq(phi: torch.Tensor, theta2: torch.Tensor) -> torch.Tensor:
 
 def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     """Rodrigues formula: (..., 3) axis-angle -> (..., 3, 3) rotation."""
-    theta2 = torch.sum(phi * phi, dim=-1)
+    theta2 = dot3(phi, phi)  # XLA fuses the squared norm as it fuses a dot
     A, B, _ = _sinc_coeffs(theta2)
     K = hat(phi)
     K2 = _hat_sq(phi, theta2)
@@ -116,6 +116,50 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     return torch.where(near_pi[..., None], phi_pi, phi_generic)
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` on float32 tensors rounded ONCE to float32, as a fused
+    multiply-add does.
+
+    On CUDA tensors this is ``torch.addcmul``, whose kernel evaluates
+    ``c + 1 * a * b`` and is compiled with multiply-add contraction: one
+    launch, one fused multiply-add (``tests/test_torch_kernels_cuda.py`` and
+    ``chip_smoke.py`` hold it against the emulation below).  On the CPU,
+    where no torch op fuses, it is emulated exactly: the product of two
+    floats is exact in float64, the float64 sum is made round-to-odd (TwoSum
+    gives its error, and an inexact even result steps to its neighbour
+    towards the error), and a round-to-odd result with 29 spare bits rounds
+    to float32 as the exact sum would."""
+    if a.is_cuda:
+        return torch.addcmul(c, a, b)
+    return fma_f32_emulated(a, b, c)
+
+
+def fma_f32_emulated(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The exact float64 emulation of :func:`fma_f32`, on any device."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward), s).float()
+
+
+def dot3(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Sum over a last axis of length 3 of ``M * v`` as the chain
+    ``fma(M2, v2, fma(M1, v1, M0 * v0))``.
+
+    This is how the JAX package's jitted 3-term dots (the rotation of
+    points and of poses) round on XLA's CPU code, which fuses them into
+    multiply-adds; an eager einsum rounds every product, or fuses them,
+    depending on the host's BLAS.  Rounding as XLA does keeps a point on a
+    voxel or pairing boundary on the side where the JAX package puts it."""
+    acc = M[..., 0] * v[..., 0]
+    acc = fma_f32(M[..., 1], v[..., 1], acc)
+    return fma_f32(M[..., 2], v[..., 2], acc)
+
+
 def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ij,...j->...i", M, v)
 
@@ -123,7 +167,7 @@ def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def se3_exp(xi: torch.Tensor) -> Pose:
     """se(3) exp: (..., 6) [rho, phi] -> Pose.  Uses the left Jacobian V."""
     rho, phi = xi[..., :3], xi[..., 3:]
-    theta2 = torch.sum(phi * phi, dim=-1)
+    theta2 = dot3(phi, phi)  # XLA fuses the squared norm as it fuses a dot
     A, B, C = _sinc_coeffs(theta2)
     K = hat(phi)
     K2 = _hat_sq(phi, theta2)
@@ -136,7 +180,7 @@ def se3_exp(xi: torch.Tensor) -> Pose:
 def se3_log(pose: Pose) -> torch.Tensor:
     """SE(3) log: Pose -> (..., 6) [rho, phi]."""
     phi = so3_log(pose.R)
-    theta2 = torch.sum(phi * phi, dim=-1)
+    theta2 = dot3(phi, phi)  # XLA fuses the squared norm as it fuses a dot
     A, B, _ = _sinc_coeffs(theta2)
     K = hat(phi)
     K2 = _hat_sq(phi, theta2)
@@ -149,13 +193,14 @@ def se3_log(pose: Pose) -> torch.Tensor:
 
 
 def compose(a: Pose, b: Pose) -> Pose:
-    """a ∘ b (apply b first, then a)."""
-    return Pose(torch.matmul(a.R, b.R), _matvec(a.R, b.t) + a.t)
+    """a ∘ b (apply b first, then a); both products round as :func:`dot3`."""
+    R = dot3(a.R[..., :, None, :], b.R.transpose(-1, -2)[..., None, :, :])
+    return Pose(R, dot3(a.R, b.t[..., None, :]) + a.t)
 
 
 def inverse(p: Pose) -> Pose:
     Rt = p.R.transpose(-1, -2)
-    return Pose(Rt, -_matvec(Rt, p.t))
+    return Pose(Rt, -dot3(Rt, p.t[..., None, :]))
 
 
 def relative(a: Pose, b: Pose) -> Pose:
@@ -164,8 +209,9 @@ def relative(a: Pose, b: Pose) -> Pose:
 
 
 def transform(p: Pose, pts: torch.Tensor) -> torch.Tensor:
-    """Apply pose to points: (..., N, 3) -> (..., N, 3)."""
-    return torch.einsum("...ij,...nj->...ni", p.R, pts) + p.t[..., None, :]
+    """Apply pose to points: (..., N, 3) -> (..., N, 3), rotated by
+    :func:`dot3`, then translated."""
+    return dot3(p.R[..., None, :, :], pts[..., None, :]) + p.t[..., None, :]
 
 
 def pose_error_norms(a: Pose, b: Pose) -> Tuple[torch.Tensor, torch.Tensor]:

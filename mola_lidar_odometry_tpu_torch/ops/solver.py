@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from mola_lidar_odometry_tpu_torch.ops import se3
+from mola_lidar_odometry_tpu_torch.ops.pointcloud import on_device
 from mola_lidar_odometry_tpu_torch.ops.se3 import Pose
 
 
@@ -63,7 +64,7 @@ class PairingBlock(NamedTuple):
 
 def _per_instance(v, like: torch.Tensor) -> torch.Tensor:
     """A scalar or (B,) value as a (B, 1) f32 column beside ``like`` (B, N)."""
-    return torch.as_tensor(v, dtype=torch.float32, device=like.device).expand(like.shape[0])[:, None]
+    return on_device(v, torch.float32, like.device).expand(like.shape[0])[:, None]
 
 
 def _block_normal_equations(pose: Pose, blk: PairingBlock, kernel_c):

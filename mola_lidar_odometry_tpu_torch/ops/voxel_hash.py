@@ -33,7 +33,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from mola_lidar_odometry_tpu_torch.ops.filters import _wrap_i32, voxel_coords, voxel_hash
-from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud, gather_rows
+from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud, gather_rows, on_device
 
 _OFFS27 = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)]
 _CORNERS8 = [(i, j, k) for i in (0, 1) for j in (0, 1) for k in (0, 1)]
@@ -106,7 +106,7 @@ def neighbor_coords(queries: torch.Tensor, base: torch.Tensor, voxel_size, neigh
     """Voxel coords of the probe set per query: (..., N, 3) -> (..., N, P, 3) i32."""
     dev = base.device
     if neighbors == 27:
-        return base[..., None, :] + torch.tensor(_OFFS27, dtype=torch.int32, device=dev)
+        return base[..., None, :] + on_device(_OFFS27, torch.int32, dev)
     if neighbors == 1:
         return base[..., None, :]
     if neighbors not in (4, 8):
@@ -114,7 +114,7 @@ def neighbor_coords(queries: torch.Tensor, base: torch.Tensor, voxel_size, neigh
     # the probe block on the side of the voxel center the query falls
     frac = queries / voxel_size - (base.to(torch.float32) + 0.5)
     step = torch.where(frac >= 0, 1, -1).to(torch.int32)
-    offs = torch.tensor(_CORNERS8 if neighbors == 8 else _FACES4, dtype=torch.int32, device=dev)
+    offs = on_device(_CORNERS8 if neighbors == 8 else _FACES4, torch.int32, dev)
     return base[..., None, :] + offs * step[..., None, :]
 
 
@@ -370,7 +370,7 @@ def prune_farther_than_slab(
     kvox = unpack_key_near(pkey, cvox[:, None, :])
     centers = (kvox.to(torch.float32) + 0.5) * vs[:, None, None]
     l1 = torch.amax(torch.abs(centers - center[:, None, :]), dim=-1)
-    dist = torch.as_tensor(distance, dtype=torch.float32, device=m.data.device).expand(B)[:, None]
+    dist = on_device(distance, torch.float32, m.data.device).expand(B)[:, None]
     kill = live & (l1 > dist) & (dist > 0)
     lane1 = torch.arange(m.stride, device=m.data.device) == 1
     neww = torch.where(kill[..., None] & lane1, 0, w)
@@ -481,3 +481,22 @@ def nn2_from(cand: CandSet, queries: torch.Tensor, valid: torch.Tensor) -> Tuple
     best_d2 = torch.cat([d1, d2nd], dim=-1)
     found = valid[..., None] & torch.isfinite(best_d2)
     return best_pt, torch.where(found, best_d2, torch.inf), found
+
+
+def as_pointcloud(m: VoxelHashMap, capacity: int, anchor: torch.Tensor) -> PointCloud:
+    """Flatten the live voxel contents into a ``(B, capacity)`` PointCloud
+    (viz, map publishing, export), valid points first in slot order.
+
+    ``anchor`` (B, 3) f32 world positions (the current robot pose) anchor
+    the unwrap of the wrapped voxel keys: positions are exact for voxels
+    within half the wrap range of the anchor (+-1024 cells in x/y, +-128 in
+    z), which the sliding local map under its eviction radius always is."""
+    B, V, K = m.data.shape[0], m.num_slots, m.K
+    vs = m.voxel_size.view(B, 1, 1)
+    avox = voxel_coords(anchor.to(torch.float32)[:, None, :], vs)  # (B, 1, 3)
+    win = m.windows()
+    coords = unpack_key_near(win[..., 0], avox)  # (B, V, 3)
+    pts = unpack_points(win[..., 2 : 2 + K], coords[:, :, None, :], vs[..., None])  # (B, V, K, 3)
+    live = torch.arange(K, device=m.data.device) < m.count()[..., None]  # (B, V, K)
+    pc = PointCloud.from_xyz(pts.reshape(B, V * K, 3), valid=live.reshape(B, V * K))
+    return pc.compact(capacity)

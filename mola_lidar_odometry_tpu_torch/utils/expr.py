@@ -44,7 +44,7 @@ def _lift(*vals):
     if ref is None:
         return None
     return [
-        v if torch.is_tensor(v) else torch.tensor(float(v), dtype=torch.float32, device=ref.device)
+        v if torch.is_tensor(v) else torch.full((), float(v), dtype=torch.float32, device=ref.device)
         for v in vals
     ]
 

@@ -28,6 +28,8 @@ def test_every_port_module_is_listed():
     for expected in (
         "ops.se3", "ops.filters", "ops.voxel_hash", "ops.pallas_capture", "ops.pallas_icp",
         "ops.pallas_match", "ops.solver", "ops.maps", "ops.icp", "models.step", "parallel.batch", "utils.carry_io", "utils.sim",
+        "models.odometry", "utils.runtime", "utils.capacity", "utils.exact_filters", "utils.serialization",
+        "utils.profiler",
     ):
         assert f"{port.__name__}.{expected}" in mods
 
@@ -54,3 +56,4 @@ def test_port_imports_no_jax():
     ]
     assert not banned, banned
     assert "mola_lidar_odometry_tpu_torch.models.step" in loaded
+    assert "mola_lidar_odometry_tpu_torch.models.odometry" in loaded

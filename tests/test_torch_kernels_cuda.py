@@ -8,7 +8,8 @@ inside the test).  On a machine with a GPU and nvcc:
 (``--noconftest``: tests/conftest.py configures JAX, which the GPU machine
 need not have; this file imports nothing of it.)
 
-B1/B2/B4 must equal their twins bit for bit (B2 also at its edge cases); B3 must agree within 3e-3 on R
+B1/B2/B4 must equal their twins bit for bit (B2 also at its edge cases, and
+all three at the one-instance shapes of ``LidarOdometry``); B3 must agree within 3e-3 on R
 and t, one iteration and 0.02 quality (reduction order differs), at both of
 its branches (candidate planes in shared memory, and read from global memory
 where a slice's planes do not fit)."""
@@ -267,6 +268,81 @@ def test_nn_select_kernel_bit_exact(dev, nbr, n):
     assert bool((got[1][:, : n // 3] == 3.4e38).all()) and not bool(torch.signbit(got[0][got[0] == 0]).any())
     with pytest.raises(ValueError):
         pm.nn_select(syn, sq.double())
+
+
+@pytest.mark.cuda
+def test_capture_kernels_one_instance_bit_exact(dev):
+    """B1 and B2 at the launch shape of the one-vehicle host API
+    (``LidarOdometry``): B = 1, 3072 queries, 8 probes, grids (48, 8, 1) and
+    (24, 8, 1)."""
+    m, q, valid = _scene(dev, n=3072, b=1)
+    assert pc.capture_geometry(1, 8, 3072).grid == (48, 8, 1)
+    assert pc.reselect_geometry(1, 8, 3072).grid == (24, 8, 1)
+    args = (m.data, m.voxel_size, m.epoch, q, 8)
+    kw = dict(K=m.K, stride=m.stride, valid=valid, return_rows=True)
+    before = pc.capture_planar.launches, pc.capture_planar_reselect.launches
+    got, ref = pc.capture_planar(*args, **kw), pc.capture_planar_plain(*args, **kw)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    moved = se3.transform(se3.se3_exp(torch.tensor([[0.04, -0.02, 0.0, 0.0, 0.0, 0.01]], device=dev)), q)
+    args2 = (got[4], m.voxel_size, m.epoch, moved.contiguous(), q, 8)
+    kw2 = dict(K=m.K, stride=m.stride, valid=valid)
+    out2, ref2 = pc.capture_planar_reselect(*args2, **kw2), pc.capture_planar_reselect_plain(*args2, **kw2)
+    assert all(torch.equal(g, r) for g, r in zip(out2, ref2))
+    assert (pc.capture_planar.launches, pc.capture_planar_reselect.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3072, 6656])
+def test_nn_select_kernel_one_instance_bit_exact(dev, n):
+    """B4 at the dual-map host API's shapes: 1 x 3072 x 54 and 1 x 6656 x 54."""
+    m, q, _ = _scene(dev, n=n, seed=3, b=1)
+    planar = pm.to_planar(vh.capture(m, q, 27, per_voxel_nn=True))
+    assert tuple(planar.x.shape) == (1, n, 54)
+    before = pm.nn_select.launches
+    for queries in (q, (q * 1.1 - 0.2).contiguous()):
+        got, ref = pm.nn_select(planar, queries), pm.nn_select_plain(planar, queries)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert pm.nn_select.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_fused_multiply_add_on_the_card_is_exact(dev):
+    """``se3.fma_f32`` on CUDA tensors (``torch.addcmul``, one fused
+    multiply-add) equals the exact emulation the CPU runs, also where the
+    sum lies on a float32 halfway point."""
+    rng = np.random.default_rng(9)
+    a = rng.normal(0, 1, 1 << 20).astype(np.float32)
+    b = rng.normal(0, 1, 1 << 20).astype(np.float32)
+    c = (rng.normal(0, 1, 1 << 20) * 10.0 ** rng.integers(-9, 9, 1 << 20)).astype(np.float32)
+    p32 = (a[:4096].astype(np.float64) * b[:4096]).astype(np.float32)
+    c[:4096] = -p32 + (np.spacing(p32) / 2).astype(np.float32)
+    t = [torch.from_numpy(x) for x in (a, b, c)]
+    got = se3.fma_f32(*(x.to(dev) for x in t)).cpu()
+    assert torch.equal(got, se3.fma_f32_emulated(*t))
+    assert not torch.equal(got, t[0] * t[1] + t[2])  # the case matters
+
+
+@pytest.mark.cuda
+def test_lidar_odometry_on_the_card_matches_the_cpu(dev):
+    """``LidarOdometry`` on the card (kernels B1-B3) against the same run on
+    the CPU (their plain twins) over 3 frames: flags and layer counts
+    exact, poses within 1e-4."""
+    import os
+
+    from mola_lidar_odometry_tpu_torch.models.odometry import LidarOdometry
+    from mola_lidar_odometry_tpu_torch.utils import sim
+
+    pipe = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "pipelines", "lidar3d-default.yaml")
+    traj, scans = sim.simulate_sequence(3, n_rings=32, n_azimuth=1024)
+    runs = {d: LidarOdometry.from_yaml_file(pipe, device=d) for d in (dev, "cpu")}
+    launches = pi.align_fused.launches
+    for k, (xyz, times, rings, valid) in enumerate(scans):
+        gpu, cpu = (runs[d].on_lidar_scan(xyz[valid], traj.stamps[k], times=times[valid], ring=rings[valid]) for d in (dev, "cpu"))
+        for f in ("accepted", "kf_local", "kf_simplemap", "n_raw", "n_icp_layer", "n_map_layer", "corrections"):
+            np.testing.assert_array_equal(getattr(gpu, f), getattr(cpu, f), err_msg=f"{f} frame {k}")
+        np.testing.assert_allclose(gpu.pose_t, cpu.pose_t, atol=1e-4)
+        np.testing.assert_allclose(gpu.pose_R, cpu.pose_R, atol=1e-4)
+    assert pi.align_fused.launches > launches
 
 
 def test_cpu_tensors_take_the_plain_twin():

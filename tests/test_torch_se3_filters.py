@@ -176,3 +176,68 @@ def test_expr_matches_jax_on_tensors():
         got = TExpr(s)({k: _t(v) for k, v in env.items()})
         ref = JExpr(s)({k: jnp.asarray(v) for k, v in env.items()})
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_fma_f32_rounds_once():
+    """``se3.fma_f32`` equals the exactly rounded ``a * b + c``, also where
+    the sum lies on or next to a float32 halfway point (where rounding the
+    float64 sum to float32 would round twice)."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(11)
+    a = rng.normal(0, 1, 3000).astype(np.float32)
+    b = rng.normal(0, 1, 3000).astype(np.float32)
+    c = (rng.normal(0, 1, 3000) * 10.0 ** rng.integers(-9, 9, 3000)).astype(np.float32)
+    # halfway cases: c = -(a*b rounded to f32) +/- half an ulp of a*b
+    p32 = (a[:1000].astype(np.float64) * b[:1000]).astype(np.float32)
+    half = (np.spacing(p32) / 2).astype(np.float32)
+    c[:500] = -p32[:500] + half[:500]
+    c[500:1000] = (-p32[500:1000]).astype(np.float32)
+    got = tse3.fma_f32(_t(a), _t(b), _t(c)).numpy()
+
+    def exact(x, y, z):
+        ex = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+        f = np.float32(float(ex))
+        near = [np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf))]
+        return min(near, key=lambda v: (abs(Fraction(float(v)) - ex), int(np.array(v).view(np.int32)) & 1))
+
+    want = np.array([exact(x, y, z) for x, y, z in zip(a, b, c)], np.float32)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_on_device_equals_as_tensor():
+    """``pointcloud.on_device`` (no host sync on CUDA) builds what
+    ``torch.as_tensor`` builds, from numbers, lists and tensors."""
+    from mola_lidar_odometry_tpu_torch.ops.pointcloud import on_device
+
+    for v, dt in ((2.5, torch.float32), (7, torch.int32), (np.float32(0.1), torch.float32),
+                  ([[0, 1, -1], [1, 1, 1]], torch.int32), ((1.0, 2.0), torch.float32),
+                  (torch.arange(3), torch.float32)):
+        got, want = on_device(v, dt, "cpu"), torch.as_tensor(v, dtype=dt)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    # a list's tensor is made once per value, dtype and device, then shared
+    assert on_device([1, 2], torch.int32, "cpu") is on_device([1, 2], torch.int32, "cpu")
+    assert on_device([1, 2], torch.int32, "cpu") is not on_device([1, 3], torch.int32, "cpu")
+    assert on_device([1, 2], torch.float32, "cpu").dtype == torch.float32
+
+
+def test_compose_and_inverse_round_as_jax_bit_for_bit():
+    """The translations of ``compose`` and ``inverse`` are 3-term dots that
+    XLA's CPU code contracts into fused multiply-adds; the port rounds them
+    through ``se3.dot3``, so poses built from them (the navstate's
+    extrapolation, the solver's update, wheel odometry) are the JAX
+    package's bit for bit (an eager einsum differs on a good share)."""
+    rng = np.random.default_rng(21)
+    q = rng.normal(size=(2, 4000, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    aR, bR = (tse3.quat_to_rot(_t(x.astype(np.float32))).numpy() for x in q)
+    at = rng.normal(0, 30, (4000, 3)).astype(np.float32)
+    bt = rng.normal(0, 2, (4000, 3)).astype(np.float32)
+    ref = jax.jit(lambda *a: jse3.compose(jse3.Pose(a[0], a[1]), jse3.Pose(a[2], a[3])))(aR, at, bR, bt)
+    got = tse3.compose(tse3.Pose(_t(aR), _t(at)), tse3.Pose(_t(bR), _t(bt)))
+    np.testing.assert_array_equal(got.R.numpy(), np.asarray(ref.R))
+    np.testing.assert_array_equal(got.t.numpy(), np.asarray(ref.t))
+    inv = jax.jit(lambda R, t: jse3.inverse(jse3.Pose(R, t)))(aR, at)
+    np.testing.assert_array_equal(tse3.inverse(tse3.Pose(_t(aR), _t(at))).t.numpy(), np.asarray(inv.t))
+    eager = (torch.einsum("nij,nj->ni", _t(aR), _t(bt)) + _t(at)).numpy()
+    assert (eager != np.asarray(ref.t)).any(-1).mean() > 0.01  # the case the port guards against

@@ -19,7 +19,7 @@ import torch
 
 from mola_lidar_odometry_tpu_torch.models.spec import spec_from_yaml as t_spec_from_yaml
 from mola_lidar_odometry_tpu_torch.parallel import batch as tpb
-from mola_lidar_odometry_tpu_torch.utils import carry_io, sim
+from mola_lidar_odometry_tpu_torch.utils import carry_io, serialization as tser, sim
 from mola_lidar_odometry_tpu_torch.utils.config import load_yaml_file as t_load
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -116,12 +116,68 @@ def test_carry_io_round_trips_and_tracks_jax(runs):
     [
         {"MOLA_LIDAR_COUNT": "2"}, {"MOLA_SAVE_TRAJECTORY": "true"}, {"MOLA_SAVE_DEBUG_TRACES": "true"},
         {"MOLA_START_ACTIVE": "false"}, {"MOLA_LOAD_MM": "prior.mm"}, {"MOLA_LOAD_SM": "prior.simplemap"},
-        {"MOLA_GENERATE_SIMPLEMAP": "true"},
+        {"MOLA_GENERATE_SIMPLEMAP": "true"}, {"MP2P_ICP_GENERATE_DEBUG_FILES": "1"},
     ],
 )
-def test_spec_rejects_host_only_options(env):
-    """Options whose effect lives in the unported LidarOdometry host API
-    raise instead of being ignored; the pipeline's defaults are accepted."""
-    t_spec_from_yaml(t_load(PIPE, env={}), **SIZING)
-    with pytest.raises(NotImplementedError, match="LidarOdometry host API"):
-        t_spec_from_yaml(t_load(PIPE, env=env), **SIZING)
+def test_spec_rejects_host_only_options(env, tmp_path, monkeypatch):
+    """The reference's host-side options take effect through the port's
+    ``LidarOdometry`` and ``AsyncLidarOdometry``, as in the JAX package; the
+    ICP debug logs, whose replay is not ported, raise instead of being
+    ignored."""
+    from mola_lidar_odometry_tpu_torch.models.odometry import LidarOdometry
+    from mola_lidar_odometry_tpu_torch.utils.runtime import AsyncLidarOdometry, Observation
+
+    monkeypatch.chdir(tmp_path)
+    traj, scans = sim.simulate_sequence(3, n_rings=8, n_azimuth=256)
+
+    def feed(lo, k):
+        xyz, times, rings, valid = scans[k]
+        return lo.on_lidar_scan(xyz[valid], traj.stamps[k], times=times[valid], ring=rings[valid])
+
+    if "MP2P_ICP_GENERATE_DEBUG_FILES" in env:
+        monkeypatch.setenv("MP2P_ICP_GENERATE_DEBUG_FILES", "1")
+        with pytest.raises(NotImplementedError, match="replay_align_with_trace"):
+            LidarOdometry.from_yaml_file(PIPE, env={}, device="cpu", **SIZING)
+        return
+    if "MOLA_LOAD_MM" in env or "MOLA_LOAD_SM" in env:  # a previous session's outputs
+        prev = LidarOdometry.from_yaml_file(PIPE, env={"MOLA_GENERATE_SIMPLEMAP": "true"}, device="cpu", **SIZING)
+        feed(prev, 0)
+        prev.save_local_map("prior.mm")
+        prev.save_simplemap("prior.simplemap")
+    env = dict(env, MOLA_TUM_TRAJECTORY_OUTPUT="traj.tum", MOLA_DEBUG_TRACES_FILE="traces.csv",
+               MOLA_SIMPLEMAP_OUTPUT="final.simplemap", MOLA_SIMPLEMAP_GENERATE_LAZY_LOAD="true")
+    assert t_spec_from_yaml(t_load(PIPE, env={}), **SIZING).start_active
+    lo = LidarOdometry.from_yaml_file(PIPE, env=env, device="cpu", **SIZING)
+    if "MOLA_LIDAR_COUNT" in env:
+        assert lo.spec.multiple_lidar_count == 2
+        rt = AsyncLidarOdometry(lo)
+        xyz, times, _, valid = scans[0]
+        half = int(valid.sum()) // 2
+        rt.on_new_observation(Observation("lidar", "lidar", 0.0, {"xyz": xyz[valid][:half], "times": times[valid][:half]}))
+        rt.worker.wait_all()
+        assert lo.frames_processed == 0  # waiting for the second sensor
+        rt.on_new_observation(Observation("lidar", "/ouster/points", 0.01, {"xyz": xyz[valid][half:], "times": times[valid][half:]}))
+        rt.shutdown()
+        assert lo.frames_processed == 1 and not rt.fatal_error
+        return
+    if "MOLA_START_ACTIVE" in env:
+        assert not lo.active and feed(lo, 0) is None and lo.frames_processed == 0
+        return
+    if "MOLA_LOAD_MM" in env:
+        np.testing.assert_array_equal(lo.carry.maps["localmap"].data, prev.carry.maps["localmap"].data)
+        assert bool(lo.carry.map_has_content[0])
+        return
+    if "MOLA_LOAD_SM" in env:
+        assert len(lo.simplemap) == len(prev.simplemap) == 1
+        return
+    for k in range(2):
+        assert bool(feed(lo, k).accepted)
+    lo.close()
+    if "MOLA_SAVE_TRAJECTORY" in env:
+        assert np.loadtxt("traj.tum").shape == (2, 8)
+    if "MOLA_SAVE_DEBUG_TRACES" in env:
+        assert len(open("traces.csv").read().splitlines()) == 3
+    if "MOLA_GENERATE_SIMPLEMAP" in env:
+        back = tser.load_simplemap("final.simplemap")
+        assert len(back) == len(lo.simplemap) >= 1 and back[0].scan_path is not None
+        assert (tmp_path / "final.simplemap_Images").is_dir()

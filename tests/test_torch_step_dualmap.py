@@ -185,3 +185,76 @@ def test_dualmap_twist_correction_rounds_match_jax(monkeypatch):
         assert np.all(np.abs(to.iterations.numpy() - jo.iterations) <= jo.corrections + 1)
         total_corr += int(jo.corrections.sum())
     assert total_corr > 0  # the correction rounds really ran
+
+
+def test_rotation_rounds_as_jax_bit_for_bit():
+    """The jitted JAX rotation of points (``se3.transform``, and the rotation
+    plus ``v * dt`` of ``filters.deskew``) is a chain of fused multiply-adds
+    on XLA's CPU code; the port's ``dot3`` rounds the same way, so the
+    points that enter the matcher and the map insert are equal bit for bit
+    (an eager einsum differs in the last bit on a good share of them).  The
+    deskew runs at a twist whose per-point angles take the series branch of
+    ``so3_exp``: beyond it the two packages' ``cos`` differ in the last bit
+    (ROADMAP C4)."""
+    from mola_lidar_odometry_tpu.ops import filters as jf, se3 as jse3
+    from mola_lidar_odometry_tpu.ops.pointcloud import PointCloud as JPC
+    from mola_lidar_odometry_tpu_torch.ops import filters as tf, se3 as tse3
+    from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud as TPC
+
+    rng = np.random.default_rng(5)
+    xi = rng.normal(0, 0.3, (4, 6)).astype(np.float32)
+    pts = rng.normal(0, 25, (4, 2000, 3)).astype(np.float32)
+    jpose = jse3.se3_exp(jax.numpy.asarray(xi))
+    ref = np.asarray(jax.jit(jse3.transform)(jpose, pts))
+    tpose = tse3.Pose(torch.from_numpy(np.array(jpose.R)), torch.from_numpy(np.array(jpose.t)))
+    np.testing.assert_array_equal(tse3.transform(tpose, torch.from_numpy(pts)).numpy(), ref)
+    eager = (torch.einsum("bij,bnj->bni", tpose.R, torch.from_numpy(pts)) + tpose.t[:, None]).numpy()
+    assert (eager != ref).any(-1).mean() > 0.01  # the case the port guards against
+
+    times = rng.uniform(-0.05, 0.05, (2000,)).astype(np.float32)
+    twist = np.array([8.0, 0.3, -0.1, 0.002, -0.001, 0.015], np.float32)
+    ones = np.ones(2000, bool)
+    jpc = JPC(jax.numpy.asarray(pts[0]), jax.numpy.asarray(times), jax.numpy.zeros(2000),
+              jax.numpy.zeros(2000, jax.numpy.int32), jax.numpy.asarray(ones))
+    jd = np.asarray(jax.jit(jf.deskew)(jpc, jax.numpy.asarray(twist)).xyz)
+    tpc = TPC(torch.from_numpy(pts[:1]), torch.from_numpy(times[None]), torch.zeros(1, 2000),
+              torch.zeros(1, 2000, dtype=torch.int32), torch.from_numpy(ones[None]))
+    np.testing.assert_array_equal(tf.deskew(tpc, torch.from_numpy(twist[None])).xyz[0].numpy(), jd)
+
+
+def test_pairing_near_tie_follows_jax_rounding():
+    """The dual-map fault in one point: at frame 5 one query of the
+    ``localmap_far`` matcher lay between two candidates whose squared
+    distances differed by 7e-9, and a one-ulp difference in the rotated
+    query (rounded product by product in the port, fused multiply-adds in
+    the JAX package) paired it with the other candidate, so the port's
+    align stopped two iterations early and its map insert dropped one point
+    fewer.  Here two candidates straddle a query whose fused and unfused
+    rotations differ by one ulp: the port must pick the JAX package's."""
+    from mola_lidar_odometry_tpu.ops import se3 as jse3, voxel_hash as jvh
+    from mola_lidar_odometry_tpu_torch.ops import pallas_match, se3 as tse3
+    from mola_lidar_odometry_tpu_torch.ops.voxel_hash import CandSet
+
+    rng = np.random.default_rng(7)
+    jpose = jse3.se3_exp(jax.numpy.asarray(rng.normal(0, 0.2, (6,)).astype(np.float32)))
+    R, t = np.array(jpose.R), np.array(jpose.t)
+    pts = rng.normal(0, 15, (4000, 3)).astype(np.float32)
+    fused = np.asarray(jax.jit(jse3.transform)(jpose, pts))
+    plain = (np.einsum("ij,nj->ni", R, pts, dtype=np.float32) + t).astype(np.float32)
+    i, ax = np.argwhere(fused != plain)[0]
+    lo, hi = sorted((plain[i, ax], fused[i, ax]))
+    assert np.nextafter(lo, np.float32(np.inf)) == hi  # one ulp apart
+    gap = np.float32(64) * (hi - lo)
+    c_lo, c_hi = fused[i].copy(), fused[i].copy()
+    c_lo[ax], c_hi[ax] = lo - gap, hi + gap  # lo is nearer c_lo, hi nearer c_hi
+    want = c_hi if fused[i, ax] == hi else c_lo
+    cands = np.stack([c_lo, c_hi])[None]  # (N=1, C=2, 3)
+    jtgt, _, jfound = jvh.nn_from(
+        jvh.CandSet(jax.numpy.asarray(cands), jax.numpy.ones((1, 2), bool)),
+        jax.numpy.asarray(fused[i : i + 1]), jax.numpy.ones((1,), bool))
+    np.testing.assert_array_equal(np.asarray(jtgt)[0], want)
+    tpose = tse3.Pose(torch.from_numpy(R)[None], torch.from_numpy(t)[None])
+    q = tse3.transform(tpose, torch.from_numpy(pts[i : i + 1])[None])
+    planar = pallas_match.to_planar(CandSet(torch.from_numpy(cands)[None], torch.ones(1, 1, 2, dtype=torch.bool)))
+    ttgt, _ = pallas_match.nn_select(planar, q)
+    np.testing.assert_array_equal(ttgt[0, 0].numpy(), want)
