@@ -63,10 +63,32 @@ Phases, one line of numbers each:
                the last scan of each pipeline is recorded (inputs cloned)
                and, after the launch counts are read, held against its plain
                twin at those B = 1 shapes: B1, B2 and B4 bit for bit, B3
-               within phase 3's tolerance.
+               within phase 3's tolerance.  Last lidar3d-ndt, auto-sized,
+               over all but the last scan (host syncs per scan counted); its
+               NDT local map saved and loaded back through
+               utils/serialization.py into a new instance at the same sizes,
+               word for word, which steps the last scan within the guards;
+  7. ndt     — steps the B=8 fleet of pipelines/lidar3d-ndt.yaml (NDT map,
+               point-to-plane beside point-to-point, no kernel of its own)
+               over the 8 scans at the sizes the port's utils/capacity.py
+               derives (equal to the JAX package's, NDT_SIZING); prints
+               device kernels and busy time of the last step, the host syncs
+               torch flags in one step and scans/s, and the JAX package's CPU
+               figures for the same scans and sizes beside them; the kernel
+               calls of the step whose syncs are counted are recorded and
+               held against their plain twins at this path's shapes, as in
+               phase 6;
+  8. extras  — lidar3d-intensity (with utils/sim.py's world intensity) and
+               lidar3d-edges at B=8 over the 8 scans at explicit sizes
+               (EXTRAS; auto-sizing raises on their filters in both
+               packages), the same prints, and a guard that kernel B4
+               launched on each path.  Phases 7-8 (and phase 6's ndt) hold
+               the mean quality and final-pose GT error within a measured
+               spread of the JAX package's CPU figures, and to the bench's
+               guards where the JAX run meets them (``reference_guards``).
 
 Then one JSON line describing every kernel (launches summed over phases
-4-6), the card's name and power limit, and last the JSON result line.  Any
+4-8), the card's name and power limit, and last the JSON result line.  Any
 failure raises and exits non-zero.  It imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -114,6 +136,96 @@ DUALMAP_SIZING = dict(
 # GT error < 0.20).  The JAX package's CPU run of the same 6 scans with this
 # sizing meets them at 0.9945 and 0.1396 (eval/port_dualmap_reference.py --run).
 DUALMAP_GUARDS = dict(min_mean_quality=0.9, max_gt_error=0.20)
+NDT_PIPE = "lidar3d-ndt.yaml"
+# Sizing of pipelines/lidar3d-ndt.yaml for the same 8 scans by the JAX
+# package's utils/capacity.py (printed, with JAX_FIGURES, by
+# JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_family_ndt.py 8).
+NDT_SIZING = dict(
+    raw_capacity=1 << 17,
+    map_slots=1 << 16,
+    layer_capacities={
+        "raw": 1 << 17, "decimated_for_map_raw": 11776, "decimated_for_map_by_range": 11776,
+        "decimated_for_map_skewed": 11776, "decimated_for_icp_skewed": 3072, "decimated_for_map": 11776,
+        "decimated_for_icp": 3072,
+    },
+    insert_budgets={"localmap": 4096},
+)
+# The JAX package's figures for phases 7-8: one instance stepped on the CPU
+# over the same 8 scans at the same sizes (the command above; lidar3d-intensity
+# with the intensities of utils/sim.py::world_intensity).
+JAX_FIGURES = {
+    "ndt": dict(iterations=[0, 4, 7, 5, 5, 24, 24, 23], final_pose_gt_error=0.09180744737386703,
+                quality=[1.0, 0.8132184147834778, 0.8652090430259705, 0.8647170662879944, 0.863701581954956,
+                         0.9462909698486328, 0.9425995945930481, 0.95961993932724]),
+    "intensity": dict(iterations=[0, 3, 4, 4, 4, 6, 16, 12], final_pose_gt_error=0.2049948275089264,
+                      quality=[1.0, 0.9994319677352905, 0.9988607168197632, 0.9938358068466187, 0.9877353310585022,
+                               0.9890679121017456, 0.9798352718353271, 0.9896103739738464]),
+    "edges": dict(iterations=[0, 3, 5, 4, 7, 6, 6, 15], final_pose_gt_error=0.27800253033638,
+                  quality=[1.0, 0.9942655563354492, 0.9938380122184753, 0.9895333647727966, 0.973909318447113,
+                           0.9577284455299377, 0.989708423614502, 0.9815371632575989]),
+}
+# How far the port on the card may read from those figures: about four and
+# three times the largest gaps seen on an H100 (PERF.md section 6): mean
+# quality 0.0007 (ndt 0.8942-0.8943 against 0.8936) and final-pose GT error
+# 0.0030 (ndt 0.0927-0.0948 against 0.0918); intensity and edges read the
+# JAX figures to four digits.
+QUALITY_SPREAD = 0.003
+GT_SPREAD = 0.01
+
+
+def reference_guards(tag: str, n_scans: int = N_SCANS) -> dict:
+    """Guards of a path over its first ``n_scans`` scans: the mean quality
+    (scans 1 on) within QUALITY_SPREAD of the JAX package's over the same
+    scans and, over all of JAX_FIGURES' scans, the final-pose GT error
+    within GT_SPREAD of its; and the bench's guards (mean quality > 0.9,
+    GT error < 0.20) where the JAX run meets them.  It misses 0.9 on ndt
+    (0.8936) and 0.20 on intensity and edges (0.2050 and 0.2780), and there
+    the bound is the JAX figure less or plus its spread."""
+    ref = JAX_FIGURES[tag]
+    q = float(np.mean(ref["quality"][1:n_scans]))
+    g = dict(ref_quality=q, min_mean_quality=0.9 if q > 0.9 else q - QUALITY_SPREAD, max_gt_error=0.20)
+    if n_scans == len(ref["quality"]):
+        gt = ref["final_pose_gt_error"]
+        g.update(ref_gt_error=gt, max_gt_error=0.20 if gt < 0.20 else gt + GT_SPREAD)
+    return g
+
+
+def guard_failures(mean_quality: float, gt_err: float, guards: dict) -> list:
+    """What of a path's guards its mean quality and final-pose GT error
+    fail: the bounds, and the distances to the JAX figures where the
+    guards hold them."""
+    failures = []
+    if not mean_quality > guards["min_mean_quality"]:
+        failures.append(f"mean quality {mean_quality:.4f} <= {guards['min_mean_quality']:.4f}")
+    if not gt_err < guards["max_gt_error"]:
+        failures.append(f"final-pose GT error {gt_err:.4f} >= {guards['max_gt_error']:.4f}")
+    if "ref_quality" in guards and not abs(mean_quality - guards["ref_quality"]) <= QUALITY_SPREAD:
+        failures.append(f"mean quality {mean_quality:.4f} is more than {QUALITY_SPREAD} from the JAX package's "
+                        f"{guards['ref_quality']:.4f}")
+    if "ref_gt_error" in guards and not abs(gt_err - guards["ref_gt_error"]) <= GT_SPREAD:
+        failures.append(f"final-pose GT error {gt_err:.4f} is more than {GT_SPREAD} from the JAX package's "
+                        f"{guards['ref_gt_error']:.4f}")
+    return failures
+
+
+# Phase 8: the capacity derivation has no rule for the intensity and
+# curvature filters (it raises in both packages), so these sizes are
+# explicit: the bench's for the layers lidar3d-intensity shares with
+# lidar3d-default, and for lidar3d-edges' decimations at 1% and 1.5% of the
+# 80 m range room above what they hold (the saturation guard checks it).
+EXTRAS = (
+    ("intensity", os.path.join("extras", "lidar3d-intensity.yaml"), ("localmap", "localmap_bright"), dict(
+        raw_capacity=1 << 17, map_slots=1 << 17,
+        layer_capacities={"raw": 1 << 17, "decimated_for_map_raw": 11776, "decimated_for_icp": 3072},
+    )),
+    ("edges", os.path.join("extras", "lidar3d-edges.yaml"), ("localmap_large_curvature", "localmap_small_curvature"),
+     dict(
+        raw_capacity=1 << 17, map_slots=1 << 17,
+        layer_capacities={"raw": 1 << 17, "decimated_for_map_large_curvature": 8192,
+                          "decimated_for_icp_large_curvature": 4096, "decimated_for_map_smaller_curvature": 16384,
+                          "decimated_for_icp_smaller_curvature": 8192},
+    )),
+)
 
 
 def log(*a):
@@ -125,6 +237,28 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def flagged_syncs(on: bool = True):
+    """Collects, while open, the synchronizing CUDA calls torch flags
+    (``torch.cuda.set_sync_debug_mode("warn")``); the list fills on exit."""
+    import warnings
+
+    import torch
+
+    hits = []
+    if not on:
+        yield hits
+        return
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield hits
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    hits.extend(w for w in caught if "synchroniz" in str(w.message))
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -609,12 +743,17 @@ def profile_step(fstep, carry, scan):
     return carry, out
 
 
-def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names):
+def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, count_syncs=False):
     """Step the B=8 fleet of ``pipeline`` through ``scans`` on the kernels
     with every launch count set to 0 just before and read just after;
-    returns (scans/s, launches of this path per kernel name)."""
+    returns (scans/s, launches of this path per kernel name, outputs).
+    With ``count_syncs`` the step before the profiled last one counts the
+    host syncs torch flags and records its kernel calls (and is left out of
+    the rate); after the counts are read, each recorded call is held
+    against its plain twin at this path's own shapes."""
     import torch
 
+    from mola_lidar_odometry_tpu_torch.models import step as step_mod
     from mola_lidar_odometry_tpu_torch.models.spec import spec_from_yaml
     from mola_lidar_odometry_tpu_torch.parallel import batch as pb
     from mola_lidar_odometry_tpu_torch.utils.config import load_yaml_file
@@ -625,17 +764,24 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names):
     fstep = pb.make_fleet_step(spec)
     seq = [pb.pack_scans(spec, [s] * BATCH, [traj.stamps[k]] * BATCH, device=dev) for k, s in enumerate(scans)]
     carry = pb.init_fleet_carry(spec, BATCH, device=dev)
+    # the layers' buffer widths, from the step's own filter pass (no kernel runs in it)
+    widths = {name: pc.valid.shape[1] for name, pc in step_mod.filter_scan(spec, carry, seq[0])[2].items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     for r in recs:
         r["wrapper"].launches = 0
-    outs, secs = [], []
+    outs, secs, syncs, calls = [], [], None, []
     for k in range(n_scans - 1):
-        t1 = time.time()
-        carry, out = fstep(carry, seq[k])
-        torch.cuda.synchronize()
-        secs.append(time.time() - t1)
+        counted = count_syncs and k == n_scans - 2
+        with flagged_syncs(counted) as hits, recording(recs, calls) if counted else contextlib.nullcontext():
+            t1 = time.time()
+            carry, out = fstep(carry, seq[k])
+            torch.cuda.synchronize()
+        if counted:
+            syncs = len(hits)
+        else:
+            secs.append(time.time() - t1)
         outs.append(out)
     carry, out = profile_step(fstep, carry, seq[-1])  # the last frame, under the profiler
     outs.append(out)
@@ -650,8 +796,8 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names):
     iters = torch.stack([o.iterations for o in outs]).cpu().numpy()
     corr = int(torch.stack([o.corrections for o in outs]).sum())
     gt_err = gt_error(traj, n_scans - 1, carry.pose_R[0].cpu(), carry.pose_t[0].cpu())
-    icp_cap = sizing["layer_capacities"][spec.icp_local_layer]
-    map_cap = sizing["layer_capacities"][spec.map_inserts[0].input_layer]
+    icp_cap = widths[spec.icp_local_layer]
+    map_cap = widths[spec.map_inserts[0].input_layer]
     warm = 2  # frame 0 seeds the map, frame 1 is the first ICP on it
     sps = BATCH * len(secs[warm:]) / sum(secs[warm:])
     card = torch.cuda.get_device_name(0)
@@ -663,13 +809,11 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names):
     log(f"{tag}: {sps:.2f} scans/s over frames {warm}..{len(secs) - 1} (B={BATCH}) on {card}; "
         f"peak device memory {peak_gb:.3f} GB")
     log(f"{tag}: launches " + ", ".join(f"{k}={v} ({v / n_scans:.2f}/step)" for k, v in launches.items()))
-    failures = []
+    if syncs is not None:
+        log(f"{tag}: host syncs flagged by torch in step {n_scans - 2}: {syncs} (that step is left out of the rate)")
+    failures = guard_failures(float(q[1:].mean()), gt_err, guards)
     if not accepted[1:].all():
         failures.append(f"frames not accepted: {np.argwhere(~accepted).tolist()}")
-    if not q[1:].mean() > guards["min_mean_quality"]:
-        failures.append(f"mean quality {q[1:].mean():.3f} <= {guards['min_mean_quality']}")
-    if not gt_err < guards["max_gt_error"]:
-        failures.append(f"final-pose GT error {gt_err:.3f} >= {guards['max_gt_error']}")
     if not nicp.max() < icp_cap:
         failures.append(f"{spec.icp_local_layer} saturated ({int(nicp.max())})")
     if not nmap.max() < map_cap:
@@ -681,6 +825,8 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names):
     failures += [f"{k} never launched on the {tag} path" for k in guards["kernels"] if launches[k] <= 0]
     if failures:
         raise AssertionError(f"{tag}: " + "; ".join(failures))
+    if count_syncs:
+        check_recorded(tag, calls, guards["kernels"])
     return sps, launches, outs
 
 
@@ -691,17 +837,18 @@ DUALMAP_PIPE = os.path.join("extras", "lidar3d-dual-map.yaml")
 
 
 def phase_sizing(scans):
-    """Size phases 4 and 5 with the port's utils/capacity.py as bench.py
+    """Size phases 4, 5 and 7 with the port's utils/capacity.py as bench.py
     does (the first scan's dry pass, the raw buffer fitted to the largest
-    scan of the path) and hold the result against SIZING and
-    DUALMAP_SIZING, the JAX package's figures."""
+    scan of the path) and hold the result against SIZING, DUALMAP_SIZING
+    and NDT_SIZING, the JAX package's figures."""
     from mola_lidar_odometry_tpu_torch.models.spec import spec_from_yaml
     from mola_lidar_odometry_tpu_torch.utils.capacity import derive_capacities
     from mola_lidar_odometry_tpu_torch.utils.config import load_yaml_file
 
     x0, t0, _, v0 = scans[0]
     for tag, pipe, n, want in (("main", "lidar3d-default.yaml", N_SCANS, SIZING),
-                               ("dual-map", DUALMAP_PIPE, DUALMAP_SCANS, DUALMAP_SIZING)):
+                               ("dual-map", DUALMAP_PIPE, DUALMAP_SCANS, DUALMAP_SIZING),
+                               ("ndt", NDT_PIPE, N_SCANS, NDT_SIZING)):
         spec = spec_from_yaml(load_yaml_file(os.path.join(HERE, "pipelines", pipe), env={}))
         max_pts = max(int(v.sum()) for _, _, _, v in scans[:n])
         got = derive_capacities(spec, x0[v0], t0[v0], with_budgets=True, known_max_points=max_pts)
@@ -783,10 +930,10 @@ def recording(recs, calls):
 
 
 def check_recorded(tag, calls, kernels):
-    """Each kernel call recorded from the host path against its plain twin
-    on the same inputs, at the path's B = 1 shapes: B1, B2 and B4 bit for
-    bit, B3 within ``B3_TOL``.  Raises the record's ``max_abs_err`` to the
-    largest error seen."""
+    """Each kernel call recorded from a path against its plain twin on the
+    same inputs, at the path's own shapes: B1, B2 and B4 bit for bit, B3
+    within ``B3_TOL``.  Raises the record's ``max_abs_err`` to the largest
+    error seen."""
     import torch
 
     from mola_lidar_odometry_tpu_torch.ops import pallas_capture as pc, pallas_icp as pi, pallas_match as pm
@@ -799,22 +946,22 @@ def check_recorded(tag, calls, kernels):
         got, ref = r["wrapper"](*a, **k), plain[name](*a, **k)
         torch.cuda.synchronize()
         if name == "align_fused":
-            err = check_align(f"{tag}: B3 at the host path's shapes", got, ref)
+            err = check_align(f"{tag}: B3 at the path's shapes", got, ref)
         else:
             for i, (g, w) in enumerate(zip(got, ref)):
                 if not torch.equal(g, w):
-                    raise AssertionError(f"{tag}: {name} output {i} at the host path's shapes differs from its "
+                    raise AssertionError(f"{tag}: {name} output {i} at the path's shapes differs from its "
                                          f"plain twin in {int((g != w).sum())} elements")
             err = max_err(got, ref)
         r["max_abs_err"] = max(r["max_abs_err"], err)
         n, e, shapes = done.get(name, (0, 0.0, set()))
         done[name] = (n + 1, max(e, err), shapes | {"x".join(map(str, got[0].shape))})
     for name, (n, e, shapes) in done.items():
-        log(f"{tag}: {name} vs plain over {n} call(s) of the last scan, outputs {sorted(shapes)}: "
+        log(f"{tag}: {name} vs plain over {n} recorded call(s), outputs {sorted(shapes)}: "
             f"{'within tolerance' if name == 'align_fused' else 'bit-exact'}, max |d| {e:.3g}")
     missing = [k for k in kernels if k not in done]
     if missing:
-        raise AssertionError(f"{tag}: no call of {missing} recorded on the last scan")
+        raise AssertionError(f"{tag}: no call of {missing} recorded")
 
 
 def run_host(dev, tag, pipe, scans, traj, guards, count_syncs=False, record=None, **overrides):
@@ -825,9 +972,6 @@ def run_host(dev, tag, pipe, scans, traj, guards, count_syncs=False, record=None
     manager, is open around the last scan.  Returns (the instance, the host
     outputs, wall seconds per scan, syncs per scan, call sites)."""
     import collections
-    import warnings
-
-    import torch
 
     from mola_lidar_odometry_tpu_torch.models.odometry import LidarOdometry
 
@@ -836,17 +980,10 @@ def run_host(dev, tag, pipe, scans, traj, guards, count_syncs=False, record=None
     outs, secs, syncs, sites = [], [], [], collections.Counter()
     for k, (xyz, times, rings, valid) in enumerate(scans):
         last = k == len(scans) - 1
-        with record if record is not None and last else contextlib.nullcontext(), \
-                warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn" if count_syncs else 0)
-            try:
-                t1 = time.time()
-                outs.append(lo.on_lidar_scan(xyz[valid], traj.stamps[k], times=times[valid], ring=rings[valid]))
-                secs.append(time.time() - t1)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        hits = [w for w in caught if "synchroniz" in str(w.message)]
+        with record if record is not None and last else contextlib.nullcontext(), flagged_syncs(count_syncs) as hits:
+            t1 = time.time()
+            outs.append(lo.on_lidar_scan(xyz[valid], traj.stamps[k], times=times[valid], ring=rings[valid]))
+            secs.append(time.time() - t1)
         syncs.append(len(hits))
         if last:
             sites.update(f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in hits)
@@ -861,13 +998,9 @@ def run_host(dev, tag, pipe, scans, traj, guards, count_syncs=False, record=None
     log(f"{tag}: iterations per scan {[int(o.iterations) for o in outs]}; mean quality (scans > 0) "
         f"{q[1:].mean():.4f}; final-pose GT error {err:.4f}; icp layer max {nicp}/{icp_cap}; "
         f"map layer max {nmap}/{map_cap}")
-    failures = []
+    failures = guard_failures(float(q[1:].mean()), err, guards)
     if not accepted[1:].all():
         failures.append(f"scans not accepted: {np.flatnonzero(~accepted).tolist()}")
-    if not q[1:].mean() > guards["min_mean_quality"]:
-        failures.append(f"mean quality {q[1:].mean():.3f} <= {guards['min_mean_quality']}")
-    if not err < guards["max_gt_error"]:
-        failures.append(f"final-pose GT error {err:.3f} >= {guards['max_gt_error']}")
     if not (nicp < icp_cap and nmap < map_cap):
         failures.append(f"a layer saturated (icp {nicp}/{icp_cap}, map {nmap}/{map_cap})")
     if failures:
@@ -977,9 +1110,90 @@ def phase_host(dev, recs, scans, traj, main_outs):
     return launches
 
 
+def phase_ndt(dev, recs, scans, traj):
+    """Phase 7: lidar3d-ndt at B = 8 over the bench's scans, beside the JAX
+    package's CPU figures for the same scans and sizes."""
+    guards = reference_guards("ndt")
+    _, launches, _ = run_fleet(dev, recs, "ndt", NDT_PIPE, NDT_SIZING, scans, traj, dict(guards, kernels=()),
+                               ("localmap",), count_syncs=True)
+    print_reference("ndt", guards)
+    return launches
+
+
+def print_reference(tag: str, guards: dict) -> None:
+    ref = JAX_FIGURES[tag]
+    log(f"{tag}: the JAX package on the CPU (one instance, the same scans and sizes): iterations per frame "
+        f"{ref['iterations']}, mean quality {guards['ref_quality']:.4f}, final-pose GT error "
+        f"{ref['final_pose_gt_error']:.4f}; this phase's guards: mean quality > {guards['min_mean_quality']:.4f} "
+        f"and within {QUALITY_SPREAD} of the JAX figure, GT error < {guards['max_gt_error']:.4f} and within "
+        f"{GT_SPREAD} of it")
+
+
+def phase_extras(dev, recs, scans, traj):
+    """Phase 8: lidar3d-intensity and lidar3d-edges at B = 8 over the
+    bench's scans at explicit sizes; both pair through kernel B4."""
+    from mola_lidar_odometry_tpu_torch.utils import sim
+
+    total = {r["name"]: 0 for r in recs}
+    for tag, pipe, map_names, sizing in EXTRAS:
+        seq = scans
+        if tag == "intensity":  # the simulated scans have no intensity of their own
+            seq = [s + (sim.world_intensity(traj, k, s[0]),) for k, s in enumerate(scans)]
+        guards = reference_guards(tag)
+        _, launches, _ = run_fleet(dev, recs, tag, pipe, sizing, seq, traj, dict(guards, kernels=DUALMAP_KERNELS),
+                                   map_names, count_syncs=True)
+        print_reference(tag, guards)
+        for k, v in launches.items():
+            total[k] += v
+    return total
+
+
+def phase_host_ndt(dev, scans, traj):
+    """Phase 6 on lidar3d-ndt: the host API at B = 1, auto-sized, over all
+    but the last scan; the NDT local map saved and loaded back through
+    utils/serialization.py into a new instance at the same sizes, which
+    steps the last scan from the pose the first reached."""
+    import tempfile
+
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.models.odometry import LidarOdometry
+
+    warm = 2
+    guards = reference_guards("ndt", len(scans) - 1)
+    lo, outs, secs, syncs, sites = run_host(dev, "host ndt", NDT_PIPE, scans[:-1], traj, guards, count_syncs=True)
+    spec = lo.spec
+    log(f"host ndt: derived capacities raw={spec.raw_capacity} slots={[d.num_slots for d in spec.map_layers]} "
+        f"layers={json.dumps(spec.layer_capacities)}")
+    log(f"host ndt: per-scan wall ms (sync counting on) {[round(1e3 * x, 2) for x in secs]}; median over scans "
+        f"{warm}.. {1e3 * float(np.median(secs[warm:])):.2f} ms on {torch.cuda.get_device_name(0)}; host syncs per "
+        f"scan {syncs}; last scan's by call site: " + ", ".join(f"{k} x{v}" for k, v in sites.most_common()))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ndt.mm")
+        lo.save_local_map(path)
+        sizes = dict(raw_capacity=spec.raw_capacity, map_slots=spec.map_layers[0].num_slots,
+                     layer_capacities=spec.layer_capacities)
+        lo2 = LidarOdometry.from_yaml_file(os.path.join(HERE, "pipelines", NDT_PIPE), env={}, device=dev,
+                                           kf_ring_capacity=256, **sizes)
+        lo2.load_local_map(path)
+    same = torch.equal(lo2.carry.maps["localmap"].data, lo.carry.maps["localmap"].data)
+    lo2.relocalize_near_pose_pdf(outs[-1].pose_R, outs[-1].pose_t)
+    k = len(scans) - 1
+    xyz, times, rings, valid = scans[k]
+    out = lo2.on_lidar_scan(xyz[valid], traj.stamps[k], times=times[valid], ring=rings[valid])
+    err = gt_error(traj, k, out.pose_R, out.pose_t)
+    log(f"host ndt: local map saved and loaded back ({'word for word' if same else 'DIFFERS'}, "
+        f"{int(lo2.carry.maps['localmap'].num_voxels()[0])} voxels); scan {k} from the loaded map: accepted "
+        f"{bool(out.accepted)}, quality {float(out.quality):.4f}, {int(out.iterations)} iterations, GT error "
+        f"{err:.4f}")
+    if not (same and bool(out.accepted) and float(out.quality) > guards["min_mean_quality"]
+            and err < guards["max_gt_error"]):
+        raise AssertionError("host ndt: the reloaded NDT local map did not step the next scan within the guards")
+
+
 def phase_paths(dev, recs):
-    """Phases 4, 5 and 6 over one simulated sequence; fills ``launches`` of
-    every record with the sum over the three."""
+    """Phases 4-8 over one simulated sequence; fills ``launches`` of every
+    record with the sum over them."""
     t0 = time.time()
     scans, traj = bench_scans(N_SCANS)
     log(f"main: simulated {N_SCANS} scans of {len(scans[0][0])} rays in {time.time() - t0:.1f} s (host)")
@@ -993,8 +1207,11 @@ def phase_paths(dev, recs):
         scans[:DUALMAP_SCANS], traj, dict(DUALMAP_GUARDS, kernels=DUALMAP_KERNELS), ("localmap", "localmap_far"),
     )
     host_l = phase_host(dev, recs, scans, traj, main_outs)
+    phase_host_ndt(dev, scans, traj)
+    ndt_l = phase_ndt(dev, recs, scans, traj)
+    extra_l = phase_extras(dev, recs, scans, traj)
     for r in recs:
-        r["launches"] = main_l[r["name"]] + dual_l[r["name"]] + host_l[r["name"]]
+        r["launches"] = sum(ls[r["name"]] for ls in (main_l, dual_l, host_l, ndt_l, extra_l))
         del r["wrapper"]
     never = [r["name"] for r in recs if r["launches"] <= 0]
     if never:

@@ -1,11 +1,12 @@
 """YAML filter pipelines compiled to layer-dict transforms over the fleet.
 
-Port of ``mola_lidar_odometry_tpu/models/filter_graph.py`` for the ops the
-lidar3d-default pipeline uses: Decimate (FirstPoint), Range, BBox,
-AdjustTimestamps, Deskew and Delete.  Each YAML entry becomes a small
-dataclass holding compiled :class:`~..utils.expr.Expr` parameters, evaluated
-per frame on the ``(B,)`` dynamic-variable environment.  Any other filter
-or generator class raises ``NotImplementedError`` naming its ROADMAP item.
+Port of ``mola_lidar_odometry_tpu/models/filter_graph.py``: Decimate,
+Range, BBox, AdjustTimestamps, Deskew, Delete, NormalizeIntensity,
+ByIntensity and Curvature filters, and the EdgesFromRangeImage generator.
+Each YAML entry becomes a small dataclass holding compiled
+:class:`~..utils.expr.Expr` parameters, evaluated per frame on the ``(B,)``
+dynamic-variable environment.  An unknown class raises ``ValueError``, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from mola_lidar_odometry_tpu_torch.ops import filters as F
 from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud, on_device
-from mola_lidar_odometry_tpu_torch.utils.config import as_bool, as_str
+from mola_lidar_odometry_tpu_torch.utils.config import as_bool, as_float, as_str
 from mola_lidar_odometry_tpu_torch.utils.expr import Expr, as_expr
 
 
@@ -115,6 +116,80 @@ class DeleteOp:
             layers.pop(name, None)
 
 
+@dataclass(frozen=True)
+class NormalizeIntensityOp:
+    layer: str
+
+    def __call__(self, layers, env):
+        layers[self.layer] = F.normalize_intensity(layers[self.layer])
+
+
+@dataclass(frozen=True)
+class ByIntensityOp:
+    """FilterByIntensity: route points by normalized intensity into
+    low/between/high output layers (extras/lidar3d-intensity.yaml:271-276)."""
+
+    input: str
+    low: Expr
+    high: Expr
+    out_low: Optional[str] = None
+    out_between: Optional[str] = None
+    out_high: Optional[str] = None
+
+    def __call__(self, layers, env):
+        pc = layers[self.input]
+        lo, hi = F.per_instance(self.low(env)), F.per_instance(self.high(env))
+        if self.out_low:
+            layers[self.out_low] = pc.with_mask(pc.intensity < lo)
+        if self.out_between:
+            layers[self.out_between] = pc.with_mask((pc.intensity >= lo) & (pc.intensity <= hi))
+        if self.out_high:
+            layers[self.out_high] = pc.with_mask(pc.intensity > hi)
+
+
+@dataclass(frozen=True)
+class CurvatureOp:
+    """FilterCurvature: split by local curvature along each ring
+    (extras/lidar3d-edges.yaml:252-259)."""
+
+    input: str
+    out_larger: Optional[str] = None
+    out_smaller: Optional[str] = None
+    max_cosine: float = 0.5
+    min_clearance: float = 0.02
+    max_gap: float = 1e9
+
+    def __call__(self, layers, env):
+        pc = layers[self.input]
+        edge = F.curvature_mask(
+            pc, max_cosine=self.max_cosine, min_clearance=self.min_clearance, max_gap=self.max_gap
+        )
+        if self.out_larger:
+            layers[self.out_larger] = pc.with_mask(edge)
+        if self.out_smaller:
+            layers[self.out_smaller] = pc.with_mask(~edge)
+
+
+@dataclass(frozen=True)
+class EdgesFromRangeImageOp:
+    """GeneratorEdgesFromRangeImage: split the organized 'raw' scan into
+    edge and plane point layers (reference pipelines/rgbd.yaml:233-244)."""
+
+    target_layer: str = "edges"
+    planes_target_layer: Optional[str] = "planes"
+    score_threshold: float = 10.0
+    row_window_length: int = 6
+
+    def __call__(self, layers, env):
+        pc = layers["raw"]
+        edge = F.range_image_edge_mask(
+            pc, score_threshold=self.score_threshold, row_window_length=self.row_window_length
+        )
+        layers[self.target_layer] = pc.with_mask(edge)
+        if self.planes_target_layer:
+            layers[self.planes_target_layer] = pc.with_mask(~edge)
+
+
 Pipeline = List[object]
 
 
@@ -129,18 +204,27 @@ def deskew_ops(pipeline: Pipeline) -> List[DeskewOp]:
     return [op for op in pipeline if isinstance(op, DeskewOp)]
 
 
-def _not_ported(kind: str, cls: str):
-    return NotImplementedError(f"{kind} class {cls!r}: ROADMAP queue A, 'other filters'")
-
-
 def build_generator_pipeline(yaml_list: Optional[Sequence[dict]]) -> Pipeline:
     """Compile the ``observations_generator`` list: the plain Generator
-    (raw observation -> 'raw' layer) is implicit in the step."""
+    (raw observation -> 'raw' layer) is implicit in the step; specialised
+    generators become ops that derive further layers from it."""
+    out: Pipeline = []
     for entry in yaml_list or []:
         cls = as_str(entry.get("class_name", "")).split("::")[-1]
-        if cls != "Generator":
-            raise _not_ported("generator", cls)
-    return []
+        p = entry.get("params", {}) or {}
+        if cls == "Generator":
+            continue
+        if cls != "GeneratorEdgesFromRangeImage":
+            raise ValueError(f"Unsupported generator class {cls!r}")
+        out.append(
+            EdgesFromRangeImageOp(
+                target_layer=as_str(p.get("target_layer", "edges")),
+                planes_target_layer=as_str(p.get("planes_target_layer", "")) or None,
+                score_threshold=float(as_float(p.get("score_threshold"), 10.0)),
+                row_window_length=int(float(p.get("row_window_length", 6) or 6)),
+            )
+        )
+    return out
 
 
 def _default_capacity(layer_name: str, capacities: Dict[str, int]) -> int:
@@ -159,8 +243,6 @@ def build_pipeline(yaml_list: Optional[Sequence[dict]], capacities: Dict[str, in
         if short == "FilterDecimateVoxels":
             dst = as_str(p["output_pointcloud_layer"])
             method = as_str(p.get("decimate_method", "DecimateMethod::FirstPoint")).split("::")[-1]
-            if method != "FirstPoint":
-                raise _not_ported("decimate method", method)
             out.append(
                 DecimateOp(
                     input=as_str(p["input_pointcloud_layer"]),
@@ -211,8 +293,32 @@ def build_pipeline(yaml_list: Optional[Sequence[dict]], capacities: Dict[str, in
         elif short == "FilterDeleteLayer":
             rm = p.get("pointcloud_layer_to_remove", [])
             out.append(DeleteOp(layers_to_remove=tuple(as_str(x) for x in ([rm] if isinstance(rm, str) else rm))))
+        elif short == "FilterNormalizeIntensity":
+            out.append(NormalizeIntensityOp(layer=as_str(p["pointcloud_layer"])))
+        elif short == "FilterByIntensity":
+            out.append(
+                ByIntensityOp(
+                    input=as_str(p["input_pointcloud_layer"]),
+                    low=as_expr(p.get("low_threshold", 0.0)),
+                    high=as_expr(p.get("high_threshold", 1.0)),
+                    out_low=as_str(p.get("output_layer_low_intensity", "")) or None,
+                    out_between=as_str(p.get("output_layer_mid_intensity", p.get("output_layer_between", ""))) or None,
+                    out_high=as_str(p.get("output_layer_high_intensity", "")) or None,
+                )
+            )
+        elif short == "FilterCurvature":
+            out.append(
+                CurvatureOp(
+                    input=as_str(p["input_pointcloud_layer"]),
+                    out_larger=as_str(p.get("output_layer_larger_curvature", "")) or None,
+                    out_smaller=as_str(p.get("output_layer_smaller_curvature", "")) or None,
+                    max_cosine=float(as_float(p.get("max_cosine"), 0.5)),
+                    min_clearance=float(as_float(p.get("min_clearance"), 0.02)),
+                    max_gap=float(as_float(p.get("max_gap"), 1e9)),
+                )
+            )
         elif short == "FilterMerge":
             continue  # the map-insert stage of models/step.py reads it
         else:
-            raise _not_ported("filter", cls)
+            raise ValueError(f"Unsupported filter class {cls!r}")
     return out

@@ -104,6 +104,7 @@ class LidarOdometry:
         # the reference pins z/pitch/roll whenever the incoming observation
         # IS a 2D scan (LidarOdometry.cpp:863-876)
         self._step = None
+        step_mod.refuse_unverified(spec)  # before the auto-sized build of the first scan
         if spec.pin_se2 is not None:
             self._step = step_mod.make_step(spec)
         self._auto_cfg = None
@@ -209,11 +210,9 @@ class LidarOdometry:
             self.spec = spec_from_yaml(cfg, **derived)
             self._auto_cfg = None
             # no scan has been processed yet: rebuild the carry at the
-            # derived shapes, keeping a preloaded local map
-            maps, has = self.carry.maps, self.carry.map_has_content
+            # derived shapes (empty, as the JAX package does: a preloaded
+            # local map is dropped with the old sizes)
             self.carry = step_mod.init_carry(self.spec, 1, self.device)
-            if self.spec.local_map_updates.load_existing_local_map:
-                self.carry = self.carry._replace(maps=maps, map_has_content=has)
         if self.spec.pin_se2 is None:
             # auto mode only: an explicit YAML pin_se2 is never overridden
             z = np.asarray(first_xyz)[:, 2] if len(first_xyz) else np.zeros(1)

@@ -29,7 +29,7 @@ already masked, and the insert and prune update them in place.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -40,7 +40,7 @@ from mola_lidar_odometry_tpu_torch.ops import icp as icp_ops, maps as maps_ops, 
 from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud, on_device
 from mola_lidar_odometry_tpu_torch.ops.se3 import Pose
 from mola_lidar_odometry_tpu_torch.ops.solver import PosePrior
-from mola_lidar_odometry_tpu_torch.ops.voxel_hash import InsertStats, VoxelHashMap
+from mola_lidar_odometry_tpu_torch.ops.voxel_hash import InsertStats
 
 _TWIST_VARS = ("vx", "vy", "vz", "wx", "wy", "wz")
 
@@ -72,7 +72,7 @@ class Carry(NamedTuple):
     est_range: torch.Tensor  # (B,) f32 (0 = unset)
     inst_range: torch.Tensor  # (B,) f32 (0 = unset)
     nav: ns.NavStateBuffer
-    maps: Dict[str, VoxelHashMap]
+    maps: Dict[str, Any]  # layer name -> VoxelHashMap or NdtMap
     lm_kfs: keyframes.PoseRing
     sm_kfs: keyframes.PoseRing
     removal_counter: torch.Tensor  # (B,) i32
@@ -189,8 +189,40 @@ def _as_batch(v, like: torch.Tensor) -> torch.Tensor:
     return on_device(v, torch.float32, like.device).expand(like.shape[0])
 
 
+def filter_scan(
+    spec: OdometrySpec, c: Carry, scan: Scan
+) -> Tuple[Carry, Dict[str, torch.Tensor], Dict[str, PointCloud]]:
+    """Stages 2-5 of the step: the carry with its start time and, on the
+    first frame, the sensor range (the raw bounding radius); the dynamic
+    variables; and the scan's layers after the generator, timestamp and
+    filter pipelines, ``"raw"`` among them."""
+    first_time = torch.where(c.frame_idx == 0, scan.stamp, c.first_time)
+    raw_pc = PointCloud(scan.xyz, scan.time, scan.intensity, scan.ring, scan.valid)
+    raw_radius = torch.clamp(raw_pc.bounding_radius(), min=spec.absolute_minimum_sensor_range)
+    c1 = c._replace(est_range=torch.where(c.est_range > 0, c.est_range, raw_radius), first_time=first_time)
+    env = _dynamic_env(spec, c1, scan.stamp)
+    layers: Dict[str, PointCloud] = {"raw": raw_pc}
+    for pipe in (spec.generator_pipeline, spec.adjust_pipeline, spec.filter1, spec.filter2):
+        layers = apply_pipeline(pipe, layers, env)
+    return c1, env, layers
+
+
+def refuse_unverified(spec: OdometrySpec) -> None:
+    """Point-to-plane matching against a point map (pipelines/rgbd.yaml)
+    has its ops held against the JAX package, but no whole-path parity test
+    yet: the step refuses it until that test lands."""
+    point_maps = {d.name for d in spec.map_layers if d.map_class != "NDT"}
+    for mc in spec.icp_with_vel.matchers + spec.icp_without_vel.matchers:
+        if mc.kind == "point2plane" and mc.global_layer in point_maps:
+            raise NotImplementedError(
+                f"point-to-plane matching against the point map {mc.global_layer!r} has no whole-path parity "
+                "test yet: ROADMAP queue A, 'other pipeline families' (item 3.4, rgbd)"
+            )
+
+
 def make_step(spec: OdometrySpec) -> Callable[[Carry, Scan], Tuple[Carry, StepOutput]]:
     """Compile the spec into the fleet scan-step function."""
+    refuse_unverified(spec)
     dsk_ops = deskew_ops(spec.filter2)
 
     def redeskew(layers, twist):
@@ -269,19 +301,8 @@ def make_step(spec: OdometrySpec) -> Callable[[Carry, Scan], Tuple[Carry, StepOu
         B, dev = stamp.shape[0], stamp.device
         drop = (stamp - c.last_time) < spec.min_time_between_scans  # 1. masked whole-step skip
         first_ever = c.frame_idx == 0
-        first_time = torch.where(first_ever, stamp, c.first_time)
-
-        # 2. sensor range init (raw bounding radius, first frame)
-        raw_pc = PointCloud(scan.xyz, scan.time, scan.intensity, scan.ring, scan.valid)
-        raw_radius = torch.clamp(raw_pc.bounding_radius(), min=spec.absolute_minimum_sensor_range)
-        est_range0 = torch.where(c.est_range > 0, c.est_range, raw_radius)
-
-        # 3-5. dynamic variables, filter pipelines
-        c1 = c._replace(est_range=est_range0, first_time=first_time)
-        env = _dynamic_env(spec, c1, stamp)
-        layers: Dict[str, PointCloud] = {"raw": raw_pc}
-        for pipe in (spec.generator_pipeline, spec.adjust_pipeline, spec.filter1, spec.filter2):
-            layers = apply_pipeline(pipe, layers, env)
+        c1, env, layers = filter_scan(spec, c, scan)  # 2-5
+        first_time, est_range0, raw_pc = c1.first_time, c1.est_range, layers["raw"]
 
         # 2b. sensor range IIR update (ICP-layer radius)
         rng_layer = layers.get(spec.icp_local_layer, layers["raw"])
@@ -370,7 +391,7 @@ def make_step(spec: OdometrySpec) -> Callable[[Carry, Scan], Tuple[Carry, StepOu
 
         # 13. local-map update: masked inserts, then the rolling-slab prune
         layer_defs = {d.name: d for d in spec.map_layers}
-        maps_post: Dict[str, VoxelHashMap] = {}
+        maps_post: Dict[str, Any] = {}
         for name, d in layer_defs.items():
             m0 = c.maps[name]
             vs = torch.where(map_empty & active, _as_batch(d.voxel_size(env_kf), stamp), m0.voxel_size)

@@ -1,10 +1,16 @@
-"""Point-cloud filters on the main path, batched over the fleet dimension.
+"""Point-cloud filters, batched over the fleet dimension.
 
-Port of the subset of ``mola_lidar_odometry_tpu/ops/filters.py`` that the
-lidar3d-default pipeline runs: the voxel key and hash, FirstPoint voxel
-decimation, range and bounding-box splits, timestamp adjustment and deskew.
-Integer results (hashes, decimation indices) are bit-identical to the JAX
-package's.  The other filters are ROADMAP queue A item "other filters".
+Port of ``mola_lidar_odometry_tpu/ops/filters.py``: the voxel key and hash,
+voxel decimation (FirstPoint and ClosestToAverage), range and bounding-box
+splits, timestamp adjustment, deskew, intensity normalization and
+selection, and the curvature and range-image edge masks.  Integer results
+(hashes, decimation indices, masks) are bit-identical to the JAX package's.
+
+The JAX filters see one instance; the masks that compare a point with its
+neighbours in buffer order (``curvature_mask``, ``range_image_edge_mask``)
+``jnp.roll`` over the instance's whole padded buffer, so here they roll
+along the point axis of each instance, over its capacity: the tail wraps
+into the head, padding included, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -58,22 +64,26 @@ def decimate_voxels(
     min_input_points: int = 0,
     table_size: int = 1 << 19,
 ) -> PointCloud:
-    """FirstPoint voxel-grid downsample (FilterDecimateVoxels).
+    """Voxel-grid downsample (FilterDecimateVoxels).
 
-    A stable sort on the voxel slot groups each voxel's points with the
-    lowest input index first; run heads are the winners, and a second sort
-    on ``loser_flag << shift | input_index`` emits the winners in INPUT
-    order (decimation cascades, so input order is load-bearing).  If fewer
-    than ``min_input_points`` points are valid the input passes through.
-    ``voxel_size`` may be a (B,) tensor (one resolution per instance)."""
-    if method != "FirstPoint":
-        raise NotImplementedError(
-            f"decimate method {method!r}: ROADMAP queue A, 'other filters'"
-        )
+    ``FirstPoint``: a stable sort on the voxel slot groups each voxel's
+    points with the lowest input index first; run heads are the winners,
+    and a second sort on ``loser_flag << shift | input_index`` emits the
+    winners in INPUT order (decimation cascades, so input order is
+    load-bearing).  ``ClosestToAverage``: see :func:`_closest_to_average`.
+    If fewer than ``min_input_points`` points are valid the input passes
+    through.  ``voxel_size`` may be a (B,) tensor (one resolution per
+    instance)."""
     B, n = pc.valid.shape
     dev = pc.xyz.device
     vs = voxel_size.view(-1, 1, 1) if torch.is_tensor(voxel_size) else voxel_size
     slots = voxel_hash(voxel_coords(pc.xyz, vs), table_size)
+    if method == "ClosestToAverage":
+        keep = _closest_to_average(pc, slots, table_size)
+        passthrough = (pc.count() < min_input_points)[:, None]
+        return pc._replace(valid=torch.where(passthrough, pc.valid, keep)).compact(out_capacity)
+    if method != "FirstPoint":
+        raise ValueError(f"Unknown decimate method {method!r}")
     idx = torch.arange(n, dtype=torch.int32, device=dev).expand(B, n)
     key = torch.where(pc.valid, slots, table_size)
     skey, perm = torch.sort(key, dim=-1, stable=True)
@@ -109,13 +119,61 @@ def decimate_voxels(
     )
 
 
+def _sum_into(table: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> None:
+    """``table[idx] += vals`` in place, the same sums on every run.  On the
+    CPU ``index_add_`` adds serially in input order, as XLA's CPU scatter
+    does.  On CUDA ``index_add_`` adds with atomics in the order they land;
+    ``index_put_(accumulate=True)`` sorts the indices and sums each run of
+    duplicates in a fixed order (a warp's tree sum from 32 duplicates on),
+    so a voxel's centroid does not move from run to run, though it may
+    round apart from the CPU's."""
+    if table.is_cuda:
+        table.index_put_((idx,), vals, accumulate=True)
+    else:
+        table.index_add_(0, idx, vals)
+
+
+def _closest_to_average(pc: PointCloud, slots: torch.Tensor, table_size: int) -> torch.Tensor:
+    """The ClosestToAverage winners (B, n) bool: per hash slot the centroid
+    of its valid points (a scatter-add on a flat 3-lane table), then the
+    least squared distance to it (a scatter-min), and the first input index
+    that reaches it wins (a second scatter-min).  Every instance owns
+    ``table_size`` slots of one flat table.  The centroid sums are
+    deterministic: see :func:`_sum_into`."""
+    B, n = pc.valid.shape
+    dev = pc.xyz.device
+    T = table_size
+    gslot = slots.to(torch.int64) + torch.arange(B, device=dev)[:, None] * T  # (B, n)
+    idx3 = (gslot[..., None] * 3 + torch.arange(3, device=dev)).reshape(-1)
+    ssum = torch.zeros((B * T * 3,), dtype=torch.float32, device=dev)
+    _sum_into(ssum, idx3, torch.where(pc.valid[..., None], pc.xyz, 0.0).reshape(-1))
+    scnt = torch.zeros((B * T,), dtype=torch.float32, device=dev)
+    _sum_into(scnt, gslot.reshape(-1), pc.valid.to(torch.float32).reshape(-1))
+    mean = ssum.view(B * T, 3)[gslot] / torch.clamp(scnt[gslot], min=1.0)[..., None]
+    dlt = pc.xyz - mean
+    d2 = se3.dot3(dlt, dlt)
+    flat = gslot.reshape(-1)
+    dist = torch.full((B * T,), torch.inf, dtype=torch.float32, device=dev)
+    dist.scatter_reduce_(0, flat, torch.where(pc.valid, d2, torch.inf).reshape(-1), "amin")
+    attains = pc.valid & (d2 <= dist[gslot])
+    idx = torch.arange(n, dtype=torch.int32, device=dev).expand(B, n)
+    cand = torch.where(attains, idx, n)
+    first = torch.full((B * T,), n, dtype=torch.int32, device=dev)
+    first.scatter_reduce_(0, flat, cand.reshape(-1), "amin")
+    return pc.valid & (first[gslot] == idx)
+
+
+def per_instance(v):
+    """A float, or a (B,) tensor as a (B, 1) column against (B, n) data."""
+    return v[:, None] if torch.is_tensor(v) and v.dim() else v
+
+
 def filter_by_range(pc: PointCloud, range_min, range_max) -> Tuple[PointCloud, PointCloud]:
     """Split by sensor-frame range: (between, outside) layers (FilterByRange).
     ``range_min``/``range_max`` are floats or (B,) tensors."""
     x, y, z = pc.xyz.unbind(-1)
     r2 = x * x + y * y + z * z
-    lo = range_min[:, None] if torch.is_tensor(range_min) else range_min
-    hi = range_max[:, None] if torch.is_tensor(range_max) else range_max
+    lo, hi = per_instance(range_min), per_instance(range_max)
     between = (r2 >= lo * lo) & (r2 <= hi * hi)
     return pc.with_mask(between), pc.with_mask(~between)
 
@@ -156,3 +214,67 @@ def deskew(pc: PointCloud, twist: torch.Tensor, *, skip: bool = False) -> PointC
     rot = se3.dot3(Rp, pc.xyz[..., None, :])
     xyz = se3.fma_f32(v.expand_as(rot), dt.expand_as(rot), rot)
     return pc._replace(xyz=torch.where(pc.valid[..., None], xyz, pc.xyz))
+
+
+def normalize_intensity(pc: PointCloud) -> PointCloud:
+    """Scale intensities into [0, 1] by the per-frame max
+    (FilterNormalizeIntensity)."""
+    m = torch.amax(torch.where(pc.valid, pc.intensity, 0.0), dim=-1, keepdim=True)
+    return pc._replace(intensity=pc.intensity / torch.clamp(m, min=1e-12))
+
+
+def filter_by_intensity(pc: PointCloud, low, high) -> PointCloud:
+    """Keep points with intensity in [low, high] (FilterByIntensity);
+    ``low``/``high`` are floats or (B,) tensors."""
+    lo, hi = per_instance(low), per_instance(high)
+    return pc.with_mask((pc.intensity >= lo) & (pc.intensity <= hi))
+
+
+def curvature_mask(
+    pc: PointCloud,
+    *,
+    max_cosine: float = 0.5,
+    min_clearance: float = 0.02,
+    max_gap: float = 1e9,
+    window: int = 2,
+) -> torch.Tensor:
+    """High-curvature ("edge") mask (B, n) along scan order (FilterCurvature):
+    the cosine of the angle between the vectors to the +/-``window``
+    neighbours in buffer order within the same ring; edges have
+    ``cos > -max_cosine``, points on straight lines ``cos ~ -1``.
+    ``max_gap`` rejects neighbours farther than this (range
+    discontinuities, not edges)."""
+    prev = torch.roll(pc.xyz, window, dims=1)
+    nxt = torch.roll(pc.xyz, -window, dims=1)
+    ring_ok = (torch.roll(pc.ring, window, dims=1) == pc.ring) & (torch.roll(pc.ring, -window, dims=1) == pc.ring)
+    a = prev - pc.xyz
+    b = nxt - pc.xyz
+    na, nb = torch.linalg.norm(a, dim=-1), torch.linalg.norm(b, dim=-1)
+    cos = torch.sum(a * b, dim=-1) / torch.clamp(na * nb, min=1e-9)
+    clear = (na > min_clearance) & (nb > min_clearance) & (na < max_gap) & (nb < max_gap)
+    return (cos > -max_cosine) & clear & ring_ok
+
+
+def filter_curvature(pc: PointCloud, **kw) -> PointCloud:
+    """Keep high-curvature ("edge") points (FilterCurvature, larger side)."""
+    return pc.with_mask(curvature_mask(pc, **kw))
+
+
+def range_image_edge_mask(
+    pc: PointCloud, *, score_threshold: float = 10.0, row_window_length: int = 6
+) -> torch.Tensor:
+    """Edge mask (B, n) over an organized scan (GeneratorEdgesFromRangeImage):
+    points stored row-major with ``ring`` = row index; the LOAM-style score
+    ``100 * sum_j |r_{i+j} - r_i| / r_i`` over the +/- half window within
+    the same row."""
+    r = torch.linalg.norm(pc.xyz, dim=-1)
+    score = torch.zeros_like(r)
+    in_row = torch.ones_like(pc.valid)
+    for j in range(1, max(1, row_window_length // 2) + 1):
+        for sgn in (-1, 1):
+            rj = torch.roll(r, sgn * j, dims=1)
+            vj = torch.roll(pc.valid, sgn * j, dims=1) & (torch.roll(pc.ring, sgn * j, dims=1) == pc.ring)
+            score = score + torch.where(vj, torch.abs(rj - r), 0.0)
+            in_row = in_row & vj
+    rel = 100.0 * score / torch.clamp(r, min=1e-6)
+    return pc.valid & in_row & (rel > score_threshold)

@@ -26,8 +26,9 @@ pose, and the exits are tested.  The JAX loop is a ``lax.while_loop`` under
 freezes when its own condition turns false.  Here the state carries the
 fleet dimension, ``live`` is a ``(B,)`` mask that selects new or old state,
 and the loop's exit test ``live.any()`` is one host sync per iteration.
-Every single-pairing point-to-point matcher matches through kernel B4
-(``pallas_match.nn_select``) on planar candidates.
+Every single-pairing point-to-point matcher on a point map matches through
+kernel B4 (``pallas_match.nn_select``) on planar candidates; NDT layers
+pair with their voxel means and planes (``ops/ndt.py``).
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ from mola_lidar_odometry_tpu_torch.ops.solver import (
     solve_gauss_newton_blocks,
     solve_horn,
 )
-from mola_lidar_odometry_tpu_torch.ops.voxel_hash import VoxelHashMap
+from mola_lidar_odometry_tpu_torch.ops.voxel_hash import CandSet, VoxelHashMap
 from mola_lidar_odometry_tpu_torch.utils.expr import Expr
 
 
@@ -190,15 +191,17 @@ def _align_fused_call(cfg, maps, layers, init_pose: Pose, prior: PosePrior, env,
 
 def _capture_all(cfg: IcpConfig, maps, layers, pose: Pose) -> Tuple[Any, ...]:
     """One neighbourhood capture per matcher at ``pose``.  Single-pairing
-    point-to-point matchers capture the per-voxel top-2 view and go planar
-    for kernel B4; two pairings per point need the full per-voxel sets."""
+    point-to-point matchers on point maps capture the per-voxel top-2 view
+    and go planar for kernel B4; two pairings per point and point-to-plane
+    need the full per-voxel sets; NDT layers capture their voxel means."""
     sets = []
     for mc in cfg.matchers:
         xyz, _ = layers[mc.local_layer]
         q = se3.transform(pose, xyz)
         single = mc.kind == "point2point" and mc.pairings_per_point == 1
         cs = maps_ops.capture(maps[mc.global_layer], q, cfg.nn_neighbors, single)
-        sets.append(pallas_match.to_planar(cs) if single else cs)
+        planar = single and isinstance(cs, CandSet)
+        sets.append(pallas_match.to_planar(cs) if planar else cs)
     return tuple(sets)
 
 
@@ -399,7 +402,7 @@ def _align_generic(cfg: IcpConfig, maps, layers, init_pose: Pose, prior: PosePri
 
 
 def align(
-    maps: Dict[str, VoxelHashMap],
+    maps: Dict[str, Any],  # name -> map-layer state (VoxelHashMap, NdtMap)
     layers: Dict[str, Tuple[torch.Tensor, torch.Tensor]],  # name -> (xyz (B,N,3), valid (B,N))
     init_pose: Pose,
     prior: PosePrior,

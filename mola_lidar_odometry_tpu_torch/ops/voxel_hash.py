@@ -1,8 +1,9 @@
 """Device-resident sliding hash-voxel point map, batched over the fleet.
 
 Port of the main-path subset of ``mola_lidar_odometry_tpu/ops/voxel_hash.py``
-(the insert, the rolling-slab prune, the neighbourhood capture and the
-nearest-candidate selects ``nn_from``/``nn2_from`` over a captured set).  The table
+(the insert, the rolling-slab prune, the neighbourhood capture, the
+nearest-candidate selects ``nn_from``/``nn2_from`` and the plane fit
+``p2pl_from`` over a captured set).  The table
 keeps the JAX layout word for word, so the two packages' tables compare
 directly:
 
@@ -32,6 +33,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from mola_lidar_odometry_tpu_torch.ops import linalg
 from mola_lidar_odometry_tpu_torch.ops.filters import _wrap_i32, voxel_coords, voxel_hash
 from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud, gather_rows, on_device
 
@@ -172,7 +174,7 @@ class VoxelHashMap(NamedTuple):
             # the insert's dropped-entry lane needs an unused lane per window
             raise NotImplementedError(
                 f"points_per_voxel={K} fills its {stride}-lane window: "
-                "ROADMAP queue A, 'other pipeline families'"
+                "ROADMAP queue A, 'other pipeline families' (item 3.4, rgbd)"
             )
         rows = num_slots * stride // 128
         return VoxelHashMap(
@@ -230,7 +232,7 @@ def insert_stats(
     ``deferred_drops``."""
     if min_distance > 0:
         raise NotImplementedError(
-            "min_distance_between_points > 0: ROADMAP queue A, 'other pipeline families'"
+            "min_distance_between_points > 0 on a point map: ROADMAP queue A, 'other pipeline families' (item 3.4, rgbd)"
         )
     K, W, NB, s = m.K, m.ways, m.num_buckets, m.stride
     B, n = pc.valid.shape
@@ -481,6 +483,38 @@ def nn2_from(cand: CandSet, queries: torch.Tensor, valid: torch.Tensor) -> Tuple
     best_d2 = torch.cat([d1, d2nd], dim=-1)
     found = valid[..., None] & torch.isfinite(best_d2)
     return best_pt, torch.where(found, best_d2, torch.inf), found
+
+
+def p2pl_from(
+    cand: CandSet,
+    queries: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    search_radius: float = 0.8,
+    min_plane_points: int = 6,
+    plane_eigen_threshold: float = 1e-2,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Point-to-plane against cached candidates: fit a plane per query to
+    every candidate within ``search_radius`` (``Matcher_Point2Plane``
+    against a point map).  Moments are accumulated query-relative; returns
+    ``(plane_pt, normal, dist2, found)``."""
+    rel = cand.pts - queries[:, :, None, :]  # (B, N, C, 3)
+    d2 = torch.sum(rel * rel, dim=-1)
+    w = (cand.mask & (d2 <= search_radius * search_radius)).to(torch.float32)
+    cnt = torch.sum(w, dim=-1)
+    x, y, z = rel.unbind(-1)
+    mom = torch.stack([x, y, z, x * x, y * y, z * z, x * y, x * z, y * z], dim=-1)
+    sums = torch.sum(w[..., None] * mom, dim=-2)  # (B, N, 9)
+    nf = torch.clamp(cnt, min=1.0)[..., None]
+    mean_rel = sums[..., :3] / nf  # plane centroid relative to the query
+    mx, my, mz = mean_rel.unbind(-1)
+    cov6 = sums[..., 3:] / nf - torch.stack([mx * mx, my * my, mz * mz, mx * my, mx * mz, my * mz], dim=-1)
+    nrm, e_min, e_mid = linalg.sym_eigen_smallest(cov6)
+    plane_ok = (cnt >= min_plane_points) & (e_min <= plane_eigen_threshold * torch.clamp(e_mid, min=1e-12))
+    found = valid & plane_ok
+    dpl = -torch.sum(nrm * mean_rel, dim=-1)  # signed distance: query - centroid
+    plane_pt = queries - dpl[..., None] * nrm
+    return plane_pt, nrm, torch.where(found, dpl * dpl, torch.inf), found
 
 
 def as_pointcloud(m: VoxelHashMap, capacity: int, anchor: torch.Tensor) -> PointCloud:

@@ -28,20 +28,24 @@ def make_fleet_step(spec: OdometrySpec):
 
 
 def pack_scans(spec: OdometrySpec, scans, stamps, device="cuda") -> Scan:
-    """Pad a list of (xyz, times, rings, valid) numpy scans into a batched Scan."""
+    """Pad a list of (xyz, times, rings, valid[, intensity]) numpy scans
+    into a batched Scan (intensity 0 where a scan has none)."""
     b, n = len(scans), spec.raw_capacity
     xyz = np.zeros((b, n, 3), np.float32)
     tms = np.zeros((b, n), np.float32)
+    inten = np.zeros((b, n), np.float32)
     rng = np.zeros((b, n), np.int32)
     val = np.zeros((b, n), bool)
-    for i, (x, t, r, v) in enumerate(scans):
+    for i, (x, t, r, v, *rest) in enumerate(scans):
         k = min(len(x), n)
         xyz[i, :k], tms[i, :k], rng[i, :k], val[i, :k] = x[:k], t[:k], r[:k], v[:k]
+        if rest:
+            inten[i, :k] = rest[0][:k]
 
     def dev(a):
         return torch.from_numpy(a).to(device)
 
     return Scan(
-        xyz=dev(xyz), time=dev(tms), intensity=torch.zeros((b, n), dtype=torch.float32, device=device),
-        ring=dev(rng), valid=dev(val), stamp=dev(np.asarray(stamps, np.float32)),
+        xyz=dev(xyz), time=dev(tms), intensity=dev(inten), ring=dev(rng), valid=dev(val),
+        stamp=dev(np.asarray(stamps, np.float32)),
     )

@@ -6,15 +6,16 @@ package loads in the other:
 
   * ``*.mm.npz`` — the local map's layers: per layer ``<name>/voxel_size``
     (scalar f32), ``<name>/data`` ((rows, 128) i32, the JAX table layout word
-    for word) and ``<name>/epoch`` (scalar i32), plus a JSON ``__meta__``
-    with each layer's class and its static ``K`` and ``stride``;
+    for word) and ``<name>/epoch`` (scalar i32), an NDT layer also
+    ``<name>/max_eigen_ratio`` (scalar f32), plus a JSON ``__meta__`` with
+    each layer's class and a point map's static ``K`` and ``stride``;
   * ``*.simplemap.npz`` — keyframed trajectory and raw scans, the scans
     optionally externalized to ``<name>_Images/scan_*.bin`` for lazy load.
 
 A port map carries a leading fleet dimension; the file holds one instance
-(B = 1), without it.  Only hashed-voxel layers exist in the port: a file
-with an NDT or occupancy layer raises.  The MRPT ``.simplemap``/``.mm``
-import and export wait for ROADMAP queue A, 'Host surface'.
+(B = 1), without it.  Hashed-voxel and NDT layers exist in the port: a file
+with an occupancy layer raises.  The MRPT ``.simplemap``/``.mm`` import and
+export wait for ROADMAP queue A, 'Host surface'.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Dict, List, Union
 import numpy as np
 import torch
 
+from mola_lidar_odometry_tpu_torch.ops.ndt import NdtMap
 from mola_lidar_odometry_tpu_torch.ops.voxel_hash import VoxelHashMap
 
 
@@ -38,37 +40,52 @@ def _npz_path(path: Union[str, Path]) -> str:
     return p + ".npz"
 
 
-def save_metric_map(path: Union[str, Path], maps: Dict[str, VoxelHashMap]) -> None:
+def save_metric_map(path: Union[str, Path], maps: Dict[str, object]) -> None:
     """Persist the local map layers (the '.mm' analogue) of one instance."""
     arrays, meta = {}, {}
     for name, m in maps.items():
-        if not isinstance(m, VoxelHashMap):
-            raise NotImplementedError(f"saving map state {type(m).__name__}: ROADMAP queue A, 'other pipeline families'")
+        if isinstance(m, VoxelHashMap):
+            meta[name] = {"kind": "VoxelHashMap", "K": int(m.K), "stride": int(m.stride)}
+        elif isinstance(m, NdtMap):
+            meta[name] = {"kind": "NdtMap"}
+        else:
+            raise NotImplementedError(
+                f"saving map state {type(m).__name__}: ROADMAP queue A, 'other pipeline families' (item 3.3, occupancy)"
+            )
         if m.data.shape[0] != 1:
             raise ValueError(f"save_metric_map: layer {name!r} holds {m.data.shape[0]} instances, the file holds one")
-        meta[name] = {"kind": "VoxelHashMap", "K": int(m.K), "stride": int(m.stride)}
-        arrays[f"{name}/voxel_size"] = m.voxel_size[0].cpu().numpy()
-        arrays[f"{name}/data"] = m.data[0].cpu().numpy()
-        arrays[f"{name}/epoch"] = m.epoch[0].cpu().numpy()
+        for fld in m._fields:
+            v = getattr(m, fld)
+            if torch.is_tensor(v):
+                arrays[f"{name}/{fld}"] = v[0].cpu().numpy()
     np.savez_compressed(_npz_path(path), __meta__=json.dumps(meta), **arrays)
 
 
-def load_metric_map(path: Union[str, Path], device="cuda") -> Dict[str, VoxelHashMap]:
+def load_metric_map(path: Union[str, Path], device="cuda") -> Dict[str, object]:
     """Load a '.mm.npz' → dict of one-instance layers on ``device``."""
     d = np.load(_npz_path(path), allow_pickle=False)
     meta = json.loads(str(d["__meta__"]))
     out = {}
     for name, info in meta.items():
-        if info["kind"] != "VoxelHashMap":
-            raise NotImplementedError(f"loading map layer {info['kind']}: ROADMAP queue A, 'other pipeline families'")
 
         def arr(fld, dtype):
             return torch.as_tensor(np.asarray(d[f"{name}/{fld}"]), dtype=dtype, device=device)[None]
 
-        out[name] = VoxelHashMap(
-            voxel_size=arr("voxel_size", torch.float32), data=arr("data", torch.int32),
-            epoch=arr("epoch", torch.int32), K=int(info["K"]), stride=int(info["stride"]),
-        )
+        f32, i32 = torch.float32, torch.int32
+        if info["kind"] == "VoxelHashMap":
+            out[name] = VoxelHashMap(
+                voxel_size=arr("voxel_size", f32), data=arr("data", i32),
+                epoch=arr("epoch", i32), K=int(info["K"]), stride=int(info["stride"]),
+            )
+        elif info["kind"] == "NdtMap":
+            out[name] = NdtMap(
+                voxel_size=arr("voxel_size", f32), max_eigen_ratio=arr("max_eigen_ratio", f32),
+                data=arr("data", i32), epoch=arr("epoch", i32),
+            )
+        else:
+            raise NotImplementedError(
+                f"loading map layer {info['kind']}: ROADMAP queue A, 'other pipeline families' (item 3.3, occupancy)"
+            )
     return out
 
 

@@ -421,3 +421,13 @@ def simulate_sequence(
             )
         )
     return traj, scans
+
+
+def world_intensity(traj: SimTrajectory, k: int, xyz: np.ndarray) -> np.ndarray:
+    """Intensities for scan ``k`` of ``traj`` (sensor-frame ``xyz`` (N, 3)):
+    bright (250) on stripes of the world, dull (0-120) elsewhere, a function
+    of the world position only, so a bright surface stays bright from scan
+    to scan (the intensity pipelines' bright layer)."""
+    w = xyz.astype(np.float64) @ traj.R[k].T + traj.t[k]
+    bright = np.sin(1.3 * w[:, 0]) * np.sin(1.1 * w[:, 1]) > 0.6
+    return np.where(bright, 250.0, 60.0 * (1.0 + np.sin(3.0 * w[:, 2]))).astype(np.float32)

@@ -10,6 +10,7 @@ iteration apart."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,11 +149,15 @@ def test_icp_align_matches_jax(scene, monkeypatch, max_iterations):
 
 
 def test_non_fused_config_raises(scene):
-    """A configuration outside the fused path (here a Horn stage) no longer
-    raises: it runs the generic loop.  What still raises is point-to-plane
-    matching, naming its ROADMAP item."""
+    """A configuration outside the fused path no longer raises: it runs the
+    generic loop, here with a Horn stage and with a single point-to-plane
+    matcher (a plane fitted per query to its candidates), which ends where
+    the JAX package's does.  What still raises is the occupancy map class,
+    naming its ROADMAP item."""
+    from mola_lidar_odometry_tpu_torch.ops import maps as tmaps
+
     jm, tm, local, valid, *_ = scene
-    _, tcfg = _cfgs(30)
+    jcfg, tcfg = _cfgs(30)
     T = torch.from_numpy
     args = (
         {"localmap": tm}, {"icp": (T(np.stack([local] * B)), T(np.stack([valid] * B)))},
@@ -161,5 +166,16 @@ def test_non_fused_config_raises(scene):
     res = ticp.align(*args, dataclasses.replace(tcfg, horn=ticp.HornCfg()), {})
     assert float(res.quality.min()) > 0.9 and not res.hook_stop.any()
     p2pl = dataclasses.replace(tcfg, matchers=(ticp.MatcherCfg(kind="point2plane", local_layer="icp", threshold=TExpr(THR)),))
+    res = ticp.align(*args, p2pl, {})
+    jp2pl = dataclasses.replace(jcfg, use_pallas=False, matchers=(
+        jicp.MatcherCfg(kind="point2plane", local_layer="icp", threshold=JExpr(THR)),))
+    ref = jax.jit(lambda m, q, v: jicp.align({"localmap": m}, {"icp": (q, v)}, JPose(jnp.eye(3), jnp.zeros(3)),
+                                             JPrior.none(), jp2pl, {}))(jm, jnp.asarray(local), jnp.asarray(valid))
+    for b in range(B):
+        np.testing.assert_allclose(res.pose.R[b].numpy(), np.asarray(ref.pose.R), atol=3e-3)
+        np.testing.assert_allclose(res.pose.t[b].numpy(), np.asarray(ref.pose.t), atol=3e-3)
+        assert abs(int(res.iterations[b]) - int(ref.iterations)) <= 1
+        assert abs(float(res.quality[b]) - float(ref.quality)) < 0.02
+    assert float(res.quality.min()) > 0.5
     with pytest.raises(NotImplementedError, match="other pipeline families"):
-        ticp.align(*args, p2pl, {})
+        tmaps.MapLayerDef(map_class="CVoxelMap").create(1.0, B, "cpu")

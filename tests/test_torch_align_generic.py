@@ -125,17 +125,13 @@ def _cfg(mod, E, matchers, kw, **extra):
     return mod.IcpConfig(matchers=tuple(ms), kernel_param=E("0.5*" + ANNEAL), **kw, **extra)
 
 
-@pytest.mark.parametrize(
-    "name",
-    ["dual-map", "run-from-up-to", "one-to-one", "two-pairings", "angular-threshold", "horn-no-hook",
-     "anderson", "traced-budget"],
-)
-def test_generic_align_matches_jax(scene, name):
-    matchers, kw, budget = _case(name)
+def _align_both(s, matchers, kw, budget=None):
+    """The port's batched align and the JAX align per instance, held to the
+    gate of the module docstring; returns (the port's result, JAX's
+    iteration counts)."""
     jcfg = _cfg(jicp, JExpr, matchers, kw, use_pallas=False, per_voxel_nn=True)
     tcfg = _cfg(ticp, TExpr, matchers, kw)
     assert not ticp._fused_eligible(tcfg) or tcfg.hook_min_trans == 0  # the generic loop, not the fused path
-    s = scene
     T = torch.from_numpy
     tlayers = {k: (T(np.stack([x] * B)), T(np.stack([v] * B))) for k, (x, v) in s["layers"].items()}
     launches = tpm.nn_select.launches
@@ -163,6 +159,17 @@ def test_generic_align_matches_jax(scene, name):
         assert bool(res.hook_stop[b]) == bool(r.hook_stop), (b, "hook_stop")
         assert bool(res.converged[b]) == bool(r.converged), (b, "converged")
         its.append(int(r.iterations))
+    return res, its
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["dual-map", "run-from-up-to", "one-to-one", "two-pairings", "angular-threshold", "horn-no-hook",
+     "anderson", "traced-budget"],
+)
+def test_generic_align_matches_jax(scene, name):
+    matchers, kw, budget = _case(name)
+    res, its = _align_both(scene, matchers, kw, budget)
     # what the case must exercise
     assert len(set(its)) > 1, f"iteration counts must differ across the fleet: {its}"
     if "hook_min_trans" in kw and budget is None:
@@ -176,20 +183,26 @@ def test_generic_align_matches_jax(scene, name):
 
 
 def test_point_to_plane_names_its_roadmap_item(scene):
-    tcfg = _cfg(ticp, TExpr, [dict(kind="point2plane")], dict(nn_neighbors=8, max_iterations=5, **HOOK))
-    T = torch.from_numpy
-    tlayers = {k: (T(np.stack([x] * B)), T(np.stack([v] * B))) for k, (x, v) in scene["layers"].items()}
+    """Point-to-plane matching against a point map (a plane fitted per
+    query to its candidates, ``voxel_hash.p2pl_from``), beside a
+    point-to-point matcher on the second map, runs the generic loop as the
+    JAX package does; what still names its ROADMAP item is the occupancy
+    map class."""
+    from mola_lidar_odometry_tpu_torch.ops import maps as tmaps
+
+    matchers = [dict(kind="point2plane", threshold="1.0*" + ANNEAL),
+                dict(local_layer="icp_near", global_layer="localmap_far", threshold="1.5*" + ANNEAL, weight=0.7)]
+    res, its = _align_both(scene, matchers, dict(nn_neighbors=27, max_iterations=30, **HOOK))
+    assert float(res.quality[:2].min()) > 0.5 and len(set(its)) > 1
     with pytest.raises(NotImplementedError, match="other pipeline families"):
-        ticp.align(
-            scene["tmaps"], tlayers, TPose(T(scene["entry_R"]), T(scene["entry_t"])), TPrior.none(B, device="cpu"),
-            tcfg, {"SIG": T(scene["sig"])},
-        )
+        tmaps.MapLayerDef(map_class="CVoxelMap").create(1.0, B, "cpu")
 
 
 @pytest.mark.parametrize(
     "rel",
     ["extras/lidar3d-dual-map.yaml", "extras/lidar3d-near-far.yaml", "lidar2d.yaml",
-     "extras/icp-pipeline_no_motion_model.yaml"],
+     "extras/icp-pipeline_no_motion_model.yaml", "lidar3d-ndt.yaml", "extras/lidar3d-intensity.yaml",
+     "extras/lidar3d-edges.yaml"],
 )
 def test_shipped_generic_loop_configs_build(rel):
     """Every shipped pipeline that takes the generic loop builds the same

@@ -18,6 +18,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PIPES = {
     "default": os.path.join(HERE, "..", "pipelines", "lidar3d-default.yaml"),
     "dual-map": os.path.join(HERE, "..", "pipelines", "extras", "lidar3d-dual-map.yaml"),
+    "ndt": os.path.join(HERE, "..", "pipelines", "lidar3d-ndt.yaml"),
 }
 
 

@@ -301,6 +301,38 @@ def test_local_map_saved_by_jax_steps_in_the_port(tmp_path):
         mp.undo()
 
 
+def test_auto_sizing_drops_a_preloaded_local_map_as_jax(tmp_path):
+    """With ``load_existing_local_map`` and capacity auto-sizing, both
+    packages preload the map, then rebuild an empty carry at the sizes
+    derived from the first scan: after it the map layers hold that scan's
+    voxels only, in equal counts, at the derived slot count.  The compared
+    scan seeds the emptied map (no align result enters it), so the JAX
+    package runs its XLA path, the cheaper one to compile on the CPU."""
+    mp = pytest.MonkeyPatch()
+    for k, v in KNOBS[DUALMAP].items():
+        mp.setenv(k, v)
+    try:
+        traj, scans = sim.simulate_sequence(3, n_rings=8, n_azimuth=256)
+        src = TLO.from_yaml_file(DEFAULT, env={}, device="cpu", **CAPS)
+        for k in range(2):
+            _feed(src, scans, traj, k)
+        path = tmp_path / "previous.mm"
+        src.save_local_map(path)
+        env = {"MOLA_LOAD_MM": str(path)}
+        jlo = _jax_lo(DEFAULT, env, auto_capacity=True)
+        tlo = TLO.from_yaml_file(DEFAULT, env=env, device="cpu", auto_capacity=True)
+        assert bool(tlo.carry.map_has_content[0]) and bool(jlo.carry.map_has_content)
+        _compare(_feed(jlo, scans, traj, 2), _feed(tlo, scans, traj, 2), 2)
+        for d in tlo.spec.map_layers:
+            jm, tm = jlo.carry.maps[d.name], tlo.carry.maps[d.name]
+            assert tuple(tm.data.shape) == (1, d.num_slots * tm.stride // 128, 128)
+            assert tm.data.shape[1:] == jm.data.shape
+            assert int((tm.count() > 0).sum()) == int((np.asarray(jm.count) > 0).sum()) > 0
+        assert tlo.spec.map_layers[0].num_slots != CAPS["map_slots"]
+    finally:
+        mp.undo()
+
+
 def test_fatal_latch_and_reset(tiny):
     tiny._fatal_error = True
     assert tiny.on_lidar_scan(np.zeros((10, 3), np.float32), 0.0) is None  # dead

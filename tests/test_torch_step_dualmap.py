@@ -192,7 +192,8 @@ def test_rotation_rounds_as_jax_bit_for_bit():
     plus ``v * dt`` of ``filters.deskew``) is a chain of fused multiply-adds
     on XLA's CPU code; the port's ``dot3`` rounds the same way, so the
     points that enter the matcher and the map insert are equal bit for bit
-    (an eager einsum differs in the last bit on a good share of them).  The
+    (rounding each product and sum on its own differs in the last bit on a
+    good share of them).  The
     deskew runs at a twist whose per-point angles take the series branch of
     ``so3_exp``: beyond it the two packages' ``cos`` differ in the last bit
     (ROADMAP C4)."""
@@ -208,8 +209,18 @@ def test_rotation_rounds_as_jax_bit_for_bit():
     ref = np.asarray(jax.jit(jse3.transform)(jpose, pts))
     tpose = tse3.Pose(torch.from_numpy(np.array(jpose.R)), torch.from_numpy(np.array(jpose.t)))
     np.testing.assert_array_equal(tse3.transform(tpose, torch.from_numpy(pts)).numpy(), ref)
-    eager = (torch.einsum("bij,bnj->bni", tpose.R, torch.from_numpy(pts)) + tpose.t[:, None]).numpy()
-    assert (eager != ref).any(-1).mean() > 0.01  # the case the port guards against
+    # the same rotation rounded product by product and sum by sum (numpy's
+    # elementwise float32 ufuncs never contract to fused multiply-adds, on
+    # any host): the data must tell fused rounding from unfused rounding
+    R, t = np.asarray(jpose.R), np.asarray(jpose.t)
+    unfused = np.empty_like(pts)
+    for i in range(3):
+        acc = R[:, None, i, 0] * pts[..., 0]
+        acc = acc + R[:, None, i, 1] * pts[..., 1]
+        acc = acc + R[:, None, i, 2] * pts[..., 2]
+        unfused[..., i] = acc + t[:, None, i]
+    assert unfused.dtype == np.float32
+    assert (unfused != ref).any(-1).mean() > 0.01  # the case the port guards against
 
     times = rng.uniform(-0.05, 0.05, (2000,)).astype(np.float32)
     twist = np.array([8.0, 0.3, -0.1, 0.002, -0.001, 0.015], np.float32)
