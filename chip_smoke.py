@@ -68,6 +68,9 @@ Phases, one line of numbers each:
                NDT local map saved and loaded back through
                utils/serialization.py into a new instance at the same sizes,
                word for word, which steps the last scan within the guards;
+               then lidar2d the same way over its 2D scans (below) at the
+               explicit sizes, its occupancy map (keys, log-odds and match
+               index) saved and reloaded word for word;
   7. ndt     — steps the B=8 fleet of pipelines/lidar3d-ndt.yaml (NDT map,
                point-to-plane beside point-to-point, no kernel of its own)
                over the 8 scans at the sizes the port's utils/capacity.py
@@ -85,10 +88,26 @@ Phases, one line of numbers each:
                launched on each path.  Phases 7-8 (and phase 6's ndt) hold
                the mean quality and final-pose GT error within a measured
                spread of the JAX package's CPU figures, and to the bench's
-               guards where the JAX run meets them (``reference_guards``).
+               guards where the JAX run meets them (``reference_guards``);
+  9. lidar2d, rgbd — lidar2d at B=8 over the 12 2D scans of the JAX
+               package's test_lidar2d_family_parity (720 beams, 30 m, world
+               seed 3, 1.5 m/s) at its explicit sizes (LIDAR2D_SIZING): the
+               occupancy map with the free-space DDA walk, two pairings per
+               point, no kernel; held to the JAX package's CPU figures as in
+               phases 7-8; the DDA walk alone timed at the step's shapes and
+               its share of the step's device busy time.  rgbd at B=8 over
+               the 8 bench scans at explicit sizes (RGBD_SIZING): edges
+               through kernel B4 (its recorded calls bit for bit against the
+               twin), point-to-plane on the planes map; every frame
+               accepted, mean quality above its acceptance gate, GT error
+               under the bench's 0.20 (RGBD_GUARDS: no JAX figure at this
+               width).
+               Last the generic loop's twist-correction rounds:
+               lidar3d-dual-map over 4 scans with the rerun thresholds at
+               5 mm and 0.1 degree must run at least one round.
 
 Then one JSON line describing every kernel (launches summed over phases
-4-8), the card's name and power limit, and last the JSON result line.  Any
+4-9), the card's name and power limit, and last the JSON result line.  Any
 failure raises and exits non-zero.  It imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -163,7 +182,44 @@ JAX_FIGURES = {
     "edges": dict(iterations=[0, 3, 5, 4, 7, 6, 6, 15], final_pose_gt_error=0.27800253033638,
                   quality=[1.0, 0.9942655563354492, 0.9938380122184753, 0.9895333647727966, 0.973909318447113,
                            0.9577284455299377, 0.989708423614502, 0.9815371632575989]),
+    # JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_family_lidar2d.py 12
+    "lidar2d": dict(iterations=[0, 3, 8, 8, 7, 8, 9, 6, 6, 3, 6, 7], final_pose_gt_error=0.023755770176649094,
+                    quality=[1.0, 0.7060703039169312, 0.7875399589538574, 0.7703348994255066, 0.7543859481811523,
+                             0.7170111536979675, 0.6898733973503113, 0.6610169410705566, 0.5469697117805481,
+                             0.5267175436019897, 0.4726443886756897, 0.4494720995426178]),
 }
+# Phase 9 (and phase 6's lidar2d): the 2D scans of the JAX package's
+# test_lidar2d_family_parity (tests/test_oracle_parity.py) at its explicit
+# sizes.  Its utils/capacity.py derives 16384 slots and 1024-point layers
+# from the first scan, the same in both packages, but counts only the insert
+# sources' voxels, not the free-space voxels the rays claim: at those sizes
+# the JAX package's own run loses its map (mean quality 0.2412, frames 7-11
+# rejected, GT error 0.7335; ROADMAP C10).
+LIDAR2D_PIPE = "lidar2d.yaml"
+LIDAR2D_SCANS = 12
+LIDAR2D_SIZING = dict(
+    raw_capacity=1 << 11, map_slots=1 << 16,
+    layer_capacities={"raw": 1 << 11, "deskewed": 1 << 11, "decimated_pre": 1 << 11, "decimated": 1 << 11},
+)
+# rgbd over the bench's scans: the capacity derivation has no rule for the
+# range-image generator (it raises in both packages), so explicit sizes, the
+# derivation's own rule (1.25x the first scan's populations, 512-point
+# quanta) over populations the port measured: edges 7413, planes 120745,
+# planes_for_map 92046, planes_for_icp 63573, edges_for_map 6946,
+# edges_for_icp 5942 (scan 0; scan 7 within 3%).
+RGBD_PIPE = "rgbd.yaml"
+RGBD_SIZING = dict(
+    raw_capacity=1 << 17, map_slots=1 << 16,
+    layer_capacities={"raw": 1 << 17, "edges": 9728, "planes": 1 << 17, "edges_for_map": 9216,
+                      "edges_for_icp": 8192, "planes_for_map": 115200, "planes_for_icp": 79872},
+)
+# rgbd's guards: no JAX figure at the bench's width (the JAX package's run
+# of it on a CPU was not made: a full-size configuration).  Its quality,
+# the paired ratio over both matchers (point-to-plane within 0.40 m), sits
+# near 0.28 on these scans (H100, PERF.md section 5), below the bench's 0.9 as on
+# ndt: the bound is the pipeline's own acceptance gate (min_icp_goodness)
+# on the mean and on every frame, and the bench's GT error bound.
+RGBD_GUARDS = dict(min_mean_quality=0.25, max_gt_error=0.20)
 # How far the port on the card may read from those figures: about four and
 # three times the largest gaps seen on an H100 (PERF.md section 6): mean
 # quality 0.0007 (ndt 0.8942-0.8943 against 0.8936) and final-pose GT error
@@ -713,6 +769,9 @@ def bench_scans(n: int):
     return scans, traj
 
 
+LAST_PROFILE = {}  # the figures of the last profiled step
+
+
 def profile_step(fstep, carry, scan):
     """One fleet step under torch.profiler: wall time, device-busy time and
     the device kernels that take the most of it."""
@@ -736,6 +795,7 @@ def profile_step(fstep, carry, scan):
     n_kernels = sum(e.count for e in evs)
     log(f"profile: last step {wall:.2f} ms wall (profiled), device busy {busy:.3f} ms "
         f"({100 * busy / wall:.1f}%), {n_kernels} device kernels/copies")
+    LAST_PROFILE.update(wall_ms=wall, busy_ms=busy, device_ops=n_kernels)
     ranked = sorted(evs, key=dev_us, reverse=True)
     own = ("capture_gather_kernel", "reselect_kernel", "align_kernel", "nn_select_kernel")  # wherever they rank
     for e in ranked[:12] + [e for e in ranked[12:] if any(k in e.key for k in own)]:
@@ -743,14 +803,16 @@ def profile_step(fstep, carry, scan):
     return carry, out
 
 
-def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, count_syncs=False):
+def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, count_syncs=False, params=None):
     """Step the B=8 fleet of ``pipeline`` through ``scans`` on the kernels
     with every launch count set to 0 just before and read just after;
-    returns (scans/s, launches of this path per kernel name, outputs).
+    returns (scans/s, launches of this path per kernel name, outputs, the
+    last carry).
     With ``count_syncs`` the step before the profiled last one counts the
     host syncs torch flags and records its kernel calls (and is left out of
     the rate); after the counts are read, each recorded call is held
-    against its plain twin at this path's own shapes."""
+    against its plain twin at this path's own shapes.  ``params`` are
+    set in the pipeline's ``params`` block."""
     import torch
 
     from mola_lidar_odometry_tpu_torch.models import step as step_mod
@@ -760,6 +822,7 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, 
 
     n_scans = len(scans)
     cfg = load_yaml_file(os.path.join(HERE, "pipelines", pipeline), env={})
+    cfg["params"].update(params or {})
     spec = spec_from_yaml(cfg, kf_ring_capacity=256, **sizing)
     fstep = pb.make_fleet_step(spec)
     seq = [pb.pack_scans(spec, [s] * BATCH, [traj.stamps[k]] * BATCH, device=dev) for k, s in enumerate(scans)]
@@ -827,7 +890,7 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, 
         raise AssertionError(f"{tag}: " + "; ".join(failures))
     if count_syncs:
         check_recorded(tag, calls, guards["kernels"])
-    return sps, launches, outs
+    return sps, launches, outs, carry
 
 
 MAIN_KERNELS = ("capture_planar", "capture_planar_reselect", "align_fused")
@@ -1114,7 +1177,7 @@ def phase_ndt(dev, recs, scans, traj):
     """Phase 7: lidar3d-ndt at B = 8 over the bench's scans, beside the JAX
     package's CPU figures for the same scans and sizes."""
     guards = reference_guards("ndt")
-    _, launches, _ = run_fleet(dev, recs, "ndt", NDT_PIPE, NDT_SIZING, scans, traj, dict(guards, kernels=()),
+    _, launches, _, _ = run_fleet(dev, recs, "ndt", NDT_PIPE, NDT_SIZING, scans, traj, dict(guards, kernels=()),
                                ("localmap",), count_syncs=True)
     print_reference("ndt", guards)
     return launches
@@ -1140,7 +1203,7 @@ def phase_extras(dev, recs, scans, traj):
         if tag == "intensity":  # the simulated scans have no intensity of their own
             seq = [s + (sim.world_intensity(traj, k, s[0]),) for k, s in enumerate(scans)]
         guards = reference_guards(tag)
-        _, launches, _ = run_fleet(dev, recs, tag, pipe, sizing, seq, traj, dict(guards, kernels=DUALMAP_KERNELS),
+        _, launches, _, _ = run_fleet(dev, recs, tag, pipe, sizing, seq, traj, dict(guards, kernels=DUALMAP_KERNELS),
                                    map_names, count_syncs=True)
         print_reference(tag, guards)
         for k, v in launches.items():
@@ -1148,11 +1211,27 @@ def phase_extras(dev, recs, scans, traj):
     return total
 
 
-def phase_host_ndt(dev, scans, traj):
-    """Phase 6 on lidar3d-ndt: the host API at B = 1, auto-sized, over all
-    but the last scan; the NDT local map saved and loaded back through
-    utils/serialization.py into a new instance at the same sizes, which
-    steps the last scan from the pose the first reached."""
+def _tensors(x):
+    """Every tensor in ``x`` (nested tuples, named tuples and dicts), in order."""
+    import torch
+
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _tensors(x[k])]
+    if isinstance(x, tuple):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+def phase_host_reload(dev, tag, pipe, scans, traj, guards, min_quality, **overrides):
+    """Phase 6 on a pipeline with a map class of its own (lidar3d-ndt,
+    lidar2d): the host API at B = 1 over all but the last scan (auto-sized
+    unless ``overrides`` size it); its local map saved and loaded back
+    through utils/serialization.py into a new instance at the same sizes,
+    word for word, which steps the last scan from the pose the first
+    reached: accepted, quality above ``min_quality``, GT error within the
+    guards."""
     import tempfile
 
     import torch
@@ -1160,58 +1239,155 @@ def phase_host_ndt(dev, scans, traj):
     from mola_lidar_odometry_tpu_torch.models.odometry import LidarOdometry
 
     warm = 2
-    guards = reference_guards("ndt", len(scans) - 1)
-    lo, outs, secs, syncs, sites = run_host(dev, "host ndt", NDT_PIPE, scans[:-1], traj, guards, count_syncs=True)
+    lo, outs, secs, syncs, sites = run_host(dev, tag, pipe, scans[:-1], traj, guards, count_syncs=True, **overrides)
     spec = lo.spec
-    log(f"host ndt: derived capacities raw={spec.raw_capacity} slots={[d.num_slots for d in spec.map_layers]} "
+    log(f"{tag}: capacities raw={spec.raw_capacity} slots={[d.num_slots for d in spec.map_layers]} "
         f"layers={json.dumps(spec.layer_capacities)}")
-    log(f"host ndt: per-scan wall ms (sync counting on) {[round(1e3 * x, 2) for x in secs]}; median over scans "
+    log(f"{tag}: per-scan wall ms (sync counting on) {[round(1e3 * x, 2) for x in secs]}; median over scans "
         f"{warm}.. {1e3 * float(np.median(secs[warm:])):.2f} ms on {torch.cuda.get_device_name(0)}; host syncs per "
         f"scan {syncs}; last scan's by call site: " + ", ".join(f"{k} x{v}" for k, v in sites.most_common()))
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "ndt.mm")
+        path = os.path.join(tmp, "local.mm")
         lo.save_local_map(path)
         sizes = dict(raw_capacity=spec.raw_capacity, map_slots=spec.map_layers[0].num_slots,
                      layer_capacities=spec.layer_capacities)
-        lo2 = LidarOdometry.from_yaml_file(os.path.join(HERE, "pipelines", NDT_PIPE), env={}, device=dev,
+        lo2 = LidarOdometry.from_yaml_file(os.path.join(HERE, "pipelines", pipe), env={}, device=dev,
                                            kf_ring_capacity=256, **sizes)
         lo2.load_local_map(path)
-    same = torch.equal(lo2.carry.maps["localmap"].data, lo.carry.maps["localmap"].data)
+    a, b = _tensors(lo2.carry.maps), _tensors(lo.carry.maps)
+    same = len(a) == len(b) and all(x.shape == y.shape and torch.equal(x, y) for x, y in zip(a, b))
     lo2.relocalize_near_pose_pdf(outs[-1].pose_R, outs[-1].pose_t)
     k = len(scans) - 1
     xyz, times, rings, valid = scans[k]
     out = lo2.on_lidar_scan(xyz[valid], traj.stamps[k], times=times[valid], ring=rings[valid])
     err = gt_error(traj, k, out.pose_R, out.pose_t)
-    log(f"host ndt: local map saved and loaded back ({'word for word' if same else 'DIFFERS'}, "
-        f"{int(lo2.carry.maps['localmap'].num_voxels()[0])} voxels); scan {k} from the loaded map: accepted "
-        f"{bool(out.accepted)}, quality {float(out.quality):.4f}, {int(out.iterations)} iterations, GT error "
-        f"{err:.4f}")
-    if not (same and bool(out.accepted) and float(out.quality) > guards["min_mean_quality"]
-            and err < guards["max_gt_error"]):
-        raise AssertionError("host ndt: the reloaded NDT local map did not step the next scan within the guards")
+    m = lo2.carry.maps[spec.map_layers[0].name]
+    log(f"{tag}: local map saved and loaded back ({'word for word' if same else 'DIFFERS'}, {len(a)} tensors, "
+        f"{int(m.num_voxels()[0])} voxels); scan {k} from the loaded map: accepted {bool(out.accepted)}, quality "
+        f"{float(out.quality):.4f} (bound {min_quality:.4f}), {int(out.iterations)} iterations, GT error {err:.4f}")
+    if not (same and bool(out.accepted) and float(out.quality) > min_quality and err < guards["max_gt_error"]):
+        raise AssertionError(f"{tag}: the reloaded local map did not step the next scan within the guards")
+
+
+def lidar2d_scans(n: int):
+    """The 2D scans of the JAX package's test_lidar2d_family_parity: a
+    720-beam horizontal ring, 30 m range, 0.1 s spin, world seed 3 (extent
+    25 m, 40 boxes, 30 plates), planar motion at 1.5 m/s at z = 0.3."""
+    from mola_lidar_odometry_tpu_torch.utils import sim
+
+    world = sim.make_world(3, extent=25.0, n_boxes=40, n_plates=30)
+    traj = sim.make_trajectory(n, dt=0.1, seed=4, speed=1.5, z=0.3)
+    scans = [
+        sim.simulate_scan(world, traj.R[k], traj.t[k], traj.twists[k], n_rings=1, n_azimuth=720, fov_up_deg=0.0,
+                          fov_down_deg=0.0, spin_period=0.1, max_range=30.0, seed=50 + k)
+        for k in range(n)
+    ]
+    return scans, traj
+
+
+def dda_share(dev, scans, traj):
+    """The occupancy insert's DDA walk alone at the lidar2d step's shapes
+    (B = 8, the decimated layer of the last scan, 512 steps): its device
+    ops and device busy time under the profiler, their shares of the last
+    profiled step's (the step inserts on every frame, masked), and its
+    elapsed time by CUDA events (bound by the host issuing its ops)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mola_lidar_odometry_tpu_torch.models import step as step_mod
+    from mola_lidar_odometry_tpu_torch.models.spec import spec_from_yaml
+    from mola_lidar_odometry_tpu_torch.ops import occupancy
+    from mola_lidar_odometry_tpu_torch.parallel import batch as pb
+    from mola_lidar_odometry_tpu_torch.utils.config import load_yaml_file
+
+    busy = LAST_PROFILE["busy_ms"]
+    spec = spec_from_yaml(load_yaml_file(os.path.join(HERE, "pipelines", LIDAR2D_PIPE), env={}), **LIDAR2D_SIZING)
+    seq = pb.pack_scans(spec, [scans[-1]] * BATCH, [traj.stamps[-1]] * BATCH, device=dev)
+    pc = step_mod.filter_scan(spec, pb.init_fleet_carry(spec, BATCH, device=dev), seq)[2]["decimated"]
+    origin = torch.zeros((BATCH, 3), device=dev)
+    vs = torch.full((BATCH,), 0.05, device=dev)
+    d = spec.map_layers[0]
+
+    def walk():
+        return occupancy._dda_voxels(origin, pc.xyz, pc.valid, vs, d.max_ray_samples)
+
+    ms = cuda_ms(walk, reps=3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        walk()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ops = sum(e.count for e in evs)
+    dbusy = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0) for e in evs) / 1e3
+    n_ops = LAST_PROFILE["device_ops"]
+    log(f"lidar2d: DDA walk alone ({d.max_ray_samples} steps over B={BATCH} x {pc.valid.shape[1]} beams, "
+        f"{int(pc.count()[0])} valid): device busy {dbusy:.3f} ms in {ops} device ops, {100 * dbusy / busy:.1f}% of "
+        f"the last step's device busy {busy:.3f} ms and {100 * ops / n_ops:.1f}% of its {n_ops} device ops; "
+        f"{ms:.3f} ms elapsed per walk (CUDA events: the host issuing the ops)")
+
+
+def phase_lidar2d_rgbd(dev, recs, scans, traj):
+    """Phase 9: lidar2d at B = 8 over its 2D scans (the occupancy map, two
+    pairings per point: no kernel), held to the JAX package's CPU figures;
+    rgbd at B = 8 over the bench's scans (point-to-point on the edges map
+    through kernel B4, point-to-plane on the planes map), the B4 calls of
+    one step held bit for bit against the twin; then the generic loop's
+    twist-correction rounds on the card: lidar3d-dual-map over 4 scans with
+    the rerun thresholds at 5 mm and 0.1 degree (the recipe of
+    ``tests/test_torch_step_corrections.py``, whose 2 cm the bench's slow
+    start stays under: the vehicle moves 1.5 cm between its first two
+    scans).  Returns each kernel's launches."""
+    total = {r["name"]: 0 for r in recs}
+    s2d, traj2d = lidar2d_scans(LIDAR2D_SCANS)
+    guards = reference_guards("lidar2d", LIDAR2D_SCANS)
+    _, launches, outs, _ = run_fleet(dev, recs, "lidar2d", LIDAR2D_PIPE, LIDAR2D_SIZING, s2d, traj2d,
+                                     dict(guards, kernels=()), ("localmap",), count_syncs=True)
+    print_reference("lidar2d", guards)
+    dda_share(dev, s2d, traj2d)
+    for tag, pipe, sizing, seq, guards, maps, params in (
+        ("rgbd", RGBD_PIPE, RGBD_SIZING, scans, RGBD_GUARDS, ("localmap_edges", "localmap_planes"), None),
+        ("corrections", DUALMAP_PIPE, DUALMAP_SIZING, scans[:4], DUALMAP_GUARDS, ("localmap", "localmap_far"),
+         dict(optimize_twist_rerun_min_trans=0.005, optimize_twist_rerun_min_rot_deg=0.1)),
+    ):
+        l, outs, _ = run_fleet(dev, recs, tag, pipe, sizing, seq, traj, dict(guards, kernels=DUALMAP_KERNELS), maps,
+                               count_syncs=tag == "rgbd", params=params)[1:]
+        for k, v in l.items():
+            total[k] += v
+    corr = [int(o.corrections.max()) for o in outs]
+    log(f"corrections: most twist-correction rounds of an instance per frame {corr}")
+    if not max(corr) > 0:
+        raise AssertionError("corrections: no twist-correction round ran on the card")
+    return {k: total[k] + launches[k] for k in total}
 
 
 def phase_paths(dev, recs):
-    """Phases 4-8 over one simulated sequence; fills ``launches`` of every
-    record with the sum over them."""
+    """Phases 4-9 over the bench's simulated sequence (and lidar2d's 2D
+    scans); fills ``launches`` of every record with the sum over them."""
     t0 = time.time()
     scans, traj = bench_scans(N_SCANS)
     log(f"main: simulated {N_SCANS} scans of {len(scans[0][0])} rays in {time.time() - t0:.1f} s (host)")
     phase_sizing(scans)
-    _, main_l, main_outs = run_fleet(
+    _, main_l, main_outs, _ = run_fleet(
         dev, recs, "main", "lidar3d-default.yaml", SIZING, scans, traj, dict(MAIN_GUARDS, kernels=MAIN_KERNELS),
         ("localmap",),
     )
-    _, dual_l, _ = run_fleet(
+    _, dual_l, _, _ = run_fleet(
         dev, recs, "dual-map", DUALMAP_PIPE, DUALMAP_SIZING,
         scans[:DUALMAP_SCANS], traj, dict(DUALMAP_GUARDS, kernels=DUALMAP_KERNELS), ("localmap", "localmap_far"),
     )
     host_l = phase_host(dev, recs, scans, traj, main_outs)
-    phase_host_ndt(dev, scans, traj)
+    phase_host_reload(dev, "host ndt", NDT_PIPE, scans, traj, reference_guards("ndt", N_SCANS - 1),
+                      reference_guards("ndt", N_SCANS - 1)["min_mean_quality"])
+    s2d, traj2d = lidar2d_scans(LIDAR2D_SCANS)
+    # the reloaded instance has no motion prior (as after a relocalization):
+    # its scan is held to the JAX package's quality for that frame less 0.1
+    phase_host_reload(dev, "host lidar2d", LIDAR2D_PIPE, s2d, traj2d, reference_guards("lidar2d", LIDAR2D_SCANS - 1),
+                      JAX_FIGURES["lidar2d"]["quality"][-1] - 0.1, **LIDAR2D_SIZING)
     ndt_l = phase_ndt(dev, recs, scans, traj)
     extra_l = phase_extras(dev, recs, scans, traj)
+    l9 = phase_lidar2d_rgbd(dev, recs, scans, traj)
     for r in recs:
-        r["launches"] = sum(ls[r["name"]] for ls in (main_l, dual_l, host_l, ndt_l, extra_l))
+        r["launches"] = sum(ls[r["name"]] for ls in (main_l, dual_l, host_l, ndt_l, extra_l, l9))
         del r["wrapper"]
     never = [r["name"] for r in recs if r["launches"] <= 0]
     if never:

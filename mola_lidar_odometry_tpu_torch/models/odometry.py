@@ -104,7 +104,6 @@ class LidarOdometry:
         # the reference pins z/pitch/roll whenever the incoming observation
         # IS a 2D scan (LidarOdometry.cpp:863-876)
         self._step = None
-        step_mod.refuse_unverified(spec)  # before the auto-sized build of the first scan
         if spec.pin_se2 is not None:
             self._step = step_mod.make_step(spec)
         self._auto_cfg = None

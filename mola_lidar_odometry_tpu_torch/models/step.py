@@ -72,7 +72,7 @@ class Carry(NamedTuple):
     est_range: torch.Tensor  # (B,) f32 (0 = unset)
     inst_range: torch.Tensor  # (B,) f32 (0 = unset)
     nav: ns.NavStateBuffer
-    maps: Dict[str, Any]  # layer name -> VoxelHashMap or NdtMap
+    maps: Dict[str, Any]  # layer name -> VoxelHashMap, NdtMap or OccupancyMap
     lm_kfs: keyframes.PoseRing
     sm_kfs: keyframes.PoseRing
     removal_counter: torch.Tensor  # (B,) i32
@@ -207,22 +207,8 @@ def filter_scan(
     return c1, env, layers
 
 
-def refuse_unverified(spec: OdometrySpec) -> None:
-    """Point-to-plane matching against a point map (pipelines/rgbd.yaml)
-    has its ops held against the JAX package, but no whole-path parity test
-    yet: the step refuses it until that test lands."""
-    point_maps = {d.name for d in spec.map_layers if d.map_class != "NDT"}
-    for mc in spec.icp_with_vel.matchers + spec.icp_without_vel.matchers:
-        if mc.kind == "point2plane" and mc.global_layer in point_maps:
-            raise NotImplementedError(
-                f"point-to-plane matching against the point map {mc.global_layer!r} has no whole-path parity "
-                "test yet: ROADMAP queue A, 'other pipeline families' (item 3.4, rgbd)"
-            )
-
-
 def make_step(spec: OdometrySpec) -> Callable[[Carry, Scan], Tuple[Carry, StepOutput]]:
     """Compile the spec into the fleet scan-step function."""
-    refuse_unverified(spec)
     dsk_ops = deskew_ops(spec.filter2)
 
     def redeskew(layers, twist):
@@ -395,8 +381,7 @@ def make_step(spec: OdometrySpec) -> Callable[[Carry, Scan], Tuple[Carry, StepOu
         for name, d in layer_defs.items():
             m0 = c.maps[name]
             vs = torch.where(map_empty & active, _as_batch(d.voxel_size(env_kf), stamp), m0.voxel_size)
-            m0 = maps_ops.set_voxel_size(m0, vs)
-            maps_post[name] = m0._replace(epoch=torch.where(restart, maps_ops.clear(m0).epoch, m0.epoch))
+            maps_post[name] = maps_ops.clear_where(maps_ops.set_voxel_size(m0, vs), restart)
         ins_stats = InsertStats.zero(B, dev)
         for op in spec.map_inserts:
             insert_pc = layers_f.get(op.input_layer, layers_f[spec.icp_local_layer])

@@ -1,12 +1,10 @@
 """Local-map layer definitions and the operations the step and ICP apply.
 
-Port of ``mola_lidar_odometry_tpu/ops/maps.py`` for the point-map and NDT
-classes.  Point map classes (``HashedVoxelPointCloud`` and the plain point
-layers it serves) map to :class:`~.voxel_hash.VoxelHashMap`, ``NDT`` to
-:class:`~.ndt.NdtMap`; dispatch is on the state's type, as in the JAX
-package.  The occupancy class (``CVoxelMap``) raises
-``NotImplementedError`` until ROADMAP queue A's "other pipeline families"
-item ports it.
+Port of ``mola_lidar_odometry_tpu/ops/maps.py``.  Point map classes
+(``HashedVoxelPointCloud`` and the plain point layers it serves) map to
+:class:`~.voxel_hash.VoxelHashMap`, ``NDT`` to :class:`~.ndt.NdtMap`,
+``CVoxelMap`` to :class:`~.occupancy.OccupancyMap`; dispatch is on the
+state's type, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,7 +13,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from mola_lidar_odometry_tpu_torch.ops import ndt, pallas_match, voxel_hash
+from mola_lidar_odometry_tpu_torch.ops import ndt, occupancy, pallas_match, voxel_hash
 from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud, on_device
 from mola_lidar_odometry_tpu_torch.utils.expr import Expr, as_expr
 
@@ -23,10 +21,6 @@ _POINT_CLASSES = (
     "HashedVoxelPointCloud", "SparseTreesPointCloud", "CPointsMap", "CSimplePointsMap",
     "CPointsMapXYZI", "CPointsMapXYZIRT",
 )
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what}: ROADMAP queue A, 'other pipeline families'")
 
 
 @dataclass(frozen=True)
@@ -44,6 +38,14 @@ class MapLayerDef:
     insert_budget: int = 0
     # NDT
     max_eigen_ratio_for_planes: float = 0.05
+    # CVoxelMap (occupancy)
+    prob_hit: float = 0.7
+    prob_miss: float = 0.3
+    clamp_min: float = 0.05
+    clamp_max: float = 0.95
+    occupied_threshold: float = 0.6
+    ray_trace_free_space: bool = True
+    max_ray_samples: int = 512  # static step budget of the free-space walk per beam
 
     def create(self, voxel_size, batch: int, device="cuda"):
         if self.map_class in _POINT_CLASSES:
@@ -53,17 +55,21 @@ class MapLayerDef:
         if self.map_class == "NDT":
             return ndt.NdtMap.create(self.num_slots, voxel_size, self.max_eigen_ratio_for_planes, batch, device)
         if self.map_class == "CVoxelMap":
-            raise _not_ported(f"metric map class {self.map_class!r} (item 3.3, occupancy)")
+            return occupancy.OccupancyMap.create(
+                self.num_slots, voxel_size, batch, device, prob_hit=self.prob_hit, prob_miss=self.prob_miss,
+                clamp_min=self.clamp_min, clamp_max=self.clamp_max, occupied_threshold=self.occupied_threshold,
+            )
         raise ValueError(f"Unsupported metric map class {self.map_class!r}")
 
 
 def map_def_from_yaml(name: str, md: dict, num_slots: int) -> MapLayerDef:
     """Parse one ``metric_map_definition`` YAML block."""
-    from mola_lidar_odometry_tpu_torch.utils.config import as_float, as_str
+    from mola_lidar_odometry_tpu_torch.utils.config import as_bool, as_float, as_str
 
     cls = as_str(md.get("class", "mola::HashedVoxelPointCloud")).split("::")[-1]
     creation = md.get("creationOpts", {}) or {}
     ins = md.get("insertOpts", {}) or {}
+    lik = md.get("likelihoodOpts", {}) or {}
     voxel = creation.get("voxel_size", creation.get("resolution", 1.0))
     if cls == "SparseTreesPointCloud":
         voxel = creation.get("grid_size", voxel)
@@ -76,11 +82,13 @@ def map_def_from_yaml(name: str, md: dict, num_slots: int) -> MapLayerDef:
         points_per_voxel=int(float(ins.get("max_points_per_voxel", 20) or 20)),
         min_distance_between_points=as_float(ins.get("min_distance_between_points"), 0.0),
         max_eigen_ratio_for_planes=as_float(ins.get("max_eigen_ratio_for_planes"), 0.05),
+        prob_hit=as_float(ins.get("prob_hit"), 0.7),
+        prob_miss=as_float(ins.get("prob_miss"), 0.3),
+        clamp_min=as_float(ins.get("clamp_min"), 0.05),
+        clamp_max=as_float(ins.get("clamp_max"), 0.95),
+        occupied_threshold=as_float(lik.get("occupiedThreshold"), 0.6),
+        ray_trace_free_space=as_bool(ins.get("ray_trace_free_space"), default=True),
     )
-
-
-def _unsupported(state):
-    return _not_ported(f"map state {type(state).__name__}")
 
 
 def insert_stats(state, pc: PointCloud, sensor_origin=None, layer_def: MapLayerDef = None):
@@ -91,23 +99,28 @@ def insert_stats(state, pc: PointCloud, sensor_origin=None, layer_def: MapLayerD
         return voxel_hash.insert_stats(state, pc, min_distance=md, budget=bud)
     if isinstance(state, ndt.NdtMap):
         return ndt.insert_stats(state, pc, min_distance=md)
-    raise _unsupported(state)
+    if isinstance(state, occupancy.OccupancyMap):
+        return occupancy.insert_stats(
+            state, pc, sensor_origin, ray_trace=layer_def.ray_trace_free_space if layer_def else True,
+            max_ray_samples=layer_def.max_ray_samples if layer_def else 512,
+        )
+    raise TypeError(type(state))
 
 
 def prune_farther_than(state, center, distance):
-    """Drop every voxel farther than ``distance`` from ``center`` (B, 3);
-    the point maps' whole-table prune is their slab prune over all slabs."""
+    """Drop every voxel farther than ``distance`` from ``center`` (B, 3)."""
     if isinstance(state, voxel_hash.VoxelHashMap):
-        zero = torch.zeros((state.data.shape[0],), dtype=torch.int64, device=state.data.device)
-        return voxel_hash.prune_farther_than_slab(state, center, distance, zero, n_slabs=1)
+        return voxel_hash.prune_farther_than(state, center, distance)
     if isinstance(state, ndt.NdtMap):
         return ndt.prune_farther_than(state, center, distance)
-    raise _unsupported(state)
+    if isinstance(state, occupancy.OccupancyMap):
+        return occupancy.prune_farther_than(state, center, distance)
+    raise TypeError(type(state))
 
 
 def prune_farther_than_amortized(state, center, distance, step_idx):
     """Per-step eviction sweep: the rolling slab of the point-map tables,
-    the full prune of the small NDT tables."""
+    the full prune of the small NDT and occupancy tables."""
     if isinstance(state, voxel_hash.VoxelHashMap):
         return voxel_hash.prune_farther_than_slab(state, center, distance, step_idx)
     return prune_farther_than(state, center, distance)
@@ -121,11 +134,25 @@ def clear(state):
     return state.clear()
 
 
+def clear_where(state, mask: torch.Tensor):
+    """``clear()`` of the instances where ``mask`` (B,) holds."""
+    if isinstance(state, occupancy.OccupancyMap):
+        return state._replace(
+            used=state.used & ~mask[:, None], logodds=torch.where(mask[:, None], 0.0, state.logodds),
+            match=clear_where(state.match, mask),
+        )
+    return state._replace(epoch=torch.where(mask, state.epoch + 1, state.epoch))
+
+
 def set_voxel_size(state, voxel_size):
+    """Set each instance's voxel size (a float or a (B,) tensor); an
+    occupancy map's match grid follows."""
+    vs = on_device(voxel_size, torch.float32, state.voxel_size.device).expand(state.voxel_size.shape[0]).contiguous()
+    if isinstance(state, occupancy.OccupancyMap):
+        return state.set_voxel_size(vs)
     if not isinstance(state, (voxel_hash.VoxelHashMap, ndt.NdtMap)):
-        raise _unsupported(state)
-    vs = on_device(voxel_size, torch.float32, state.data.device)
-    return state._replace(voxel_size=vs.expand(state.data.shape[0]).contiguous())
+        raise TypeError(type(state))
+    return state._replace(voxel_size=vs)
 
 
 def capture(state, queries, neighbors: int = 27, per_voxel_nn: bool = False):
@@ -135,7 +162,9 @@ def capture(state, queries, neighbors: int = 27, per_voxel_nn: bool = False):
         return voxel_hash.capture(state, queries, neighbors, per_voxel_nn)
     if isinstance(state, ndt.NdtMap):
         return ndt.capture(state, queries, neighbors)
-    raise _unsupported(state)
+    if isinstance(state, occupancy.OccupancyMap):
+        return occupancy.capture(state, queries, neighbors)
+    raise TypeError(type(state))
 
 
 def match_p2p(candset, queries, valid):
@@ -177,6 +206,11 @@ def query_p2p(state, queries, valid, *, neighbors: int = 27):
     return match_p2p(capture(state, queries, neighbors), queries, valid)
 
 
+def query_p2p2(state, queries, valid, *, neighbors: int = 27):
+    """Two-nearest query (``pairingsPerPoint: 2``)."""
+    return match_p2p2(capture(state, queries, neighbors), queries, valid)
+
+
 def query_p2pl(state, queries, valid, *, search_radius: float = 0.8, min_plane_points: int = 6,
                plane_eigen_threshold: float = 1e-2, neighbors: int = 27):
     """Point-to-plane query: ``(plane_pt, normal, dist2, found)``."""
@@ -189,9 +223,11 @@ def query_p2pl(state, queries, valid, *, search_radius: float = 0.8, min_plane_p
 def as_pointcloud(state, capacity: int, anchor) -> PointCloud:
     """Flatten a map layer to a point view: a point map's points (the
     wrapped keys unwrapped near ``anchor`` (B, 3), the robot pose), an NDT
-    map's live voxel means."""
+    map's live voxel means, an occupancy map's occupied voxel centers."""
     if isinstance(state, voxel_hash.VoxelHashMap):
         return voxel_hash.as_pointcloud(state, capacity, anchor)
     if isinstance(state, ndt.NdtMap):
         return PointCloud.from_xyz(state.means(), valid=state.n() > 0).compact(capacity)
-    raise _unsupported(state)
+    if isinstance(state, occupancy.OccupancyMap):
+        return occupancy.as_pointcloud(state, capacity)
+    raise TypeError(type(state))

@@ -1,9 +1,10 @@
 """Device-resident sliding hash-voxel point map, batched over the fleet.
 
 Port of the main-path subset of ``mola_lidar_odometry_tpu/ops/voxel_hash.py``
-(the insert, the rolling-slab prune, the neighbourhood capture, the
-nearest-candidate selects ``nn_from``/``nn2_from`` and the plane fit
-``p2pl_from`` over a captured set).  The table
+(the insert, the rolling-slab and whole-table prunes, the occupancy map's
+slot claim, the neighbourhood capture, the nearest-candidate selects
+``nn_from``/``nn2_from`` and the plane fit ``p2pl_from`` over a captured
+set).  The table
 keeps the JAX layout word for word, so the two packages' tables compare
 directly:
 
@@ -380,6 +381,38 @@ def prune_farther_than_slab(
     return m
 
 
+def prune_farther_than(m: VoxelHashMap, center: torch.Tensor, distance) -> VoxelHashMap:
+    """The whole-table prune (``remove_voxels_farther_than``): the slab
+    prune over one slab that is the whole table."""
+    zero = torch.zeros((m.data.shape[0],), dtype=torch.int64, device=m.data.device)
+    return prune_farther_than_slab(m, center, distance, zero, n_slabs=1)
+
+
+def claim_slots(
+    same_key: torch.Tensor, occupied: torch.Tensor, coords: torch.Tensor, slot: torch.Tensor,
+    valid: torch.Tensor, num_slots: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Atomics-free parallel slot claim of a direct-mapped table (the
+    occupancy map's), per instance: (B, n) flags of each point's slot
+    (``same_key``: it holds my voxel; ``occupied``: it is owned), (B, n, 3)
+    voxel coords, (B, n) slots.  An empty slot goes to the lowest-index
+    valid point hashing to it (a ``scatter_reduce_`` "amin", the same on
+    every run); a different voxel racing for it drops this frame.  Returns
+    ``(accept, claim_ok)``: the point may write its slot; its voxel newly
+    owns the slot (write the key)."""
+    B, n = slot.shape
+    dev = slot.device
+    idx = torch.arange(n, dtype=torch.int32, device=dev).expand(B, n)
+    wants_claim = valid & ~occupied
+    claim = torch.full((B, num_slots), n, dtype=torch.int32, device=dev)
+    claim.scatter_reduce_(1, slot.long(), torch.where(wants_claim, idx, n), "amin")
+    winner = torch.gather(claim, 1, slot.long())
+    claim_won = wants_claim & (winner < n)
+    winner_coords = gather_rows(coords, torch.where(claim_won, winner, 0))
+    claim_ok = claim_won & torch.all(winner_coords == coords, dim=-1)
+    return valid & ((occupied & same_key) | claim_ok), claim_ok
+
+
 def zero_state_slab(m: VoxelHashMap, slab: torch.Tensor, n_slabs: int = 64) -> VoxelHashMap:
     """Hard-zero the state lanes of one contiguous row slab (1/``n_slabs``
     of the table), cycling with ``slab`` — guards the 16-bit epoch wrap for
@@ -400,11 +433,44 @@ class CandSet(NamedTuple):
     mask: torch.Tensor  # (B, N, C)
 
 
+# Candidate entries (instances x queries x candidates) per pass of a capture
+# or plane fit: wider inputs (27 probes of a K = 64 map over tens of
+# thousands of queries, rgbd at the bench's width) run in chunks of
+# queries, so their temporaries stay near 2 GB.  Every output row depends
+# on its own query only, so the results are those of one pass.
+_CHUNK_ENTRIES = 1 << 27
+
+
+def _by_query_chunks(fn, queries: torch.Tensor, per_query: int, *rest):
+    """``fn(queries, *rest)`` over chunks of the query axis (dim 1 of
+    ``queries`` and of every tensor in ``rest``, which may hold tuples of
+    them), the outputs (tuples of (B, N, ...) tensors) concatenated; one
+    call when the input is narrow enough."""
+    B, n = queries.shape[:2]
+    step = max(1, _CHUNK_ENTRIES // max(1, B * per_query))
+    if n <= step:
+        return fn(queries, *rest)
+
+    def like(t, items):
+        return type(t)(*items) if hasattr(t, "_fields") else tuple(items)
+
+    def cut(x, a, b):
+        return x[:, a:b] if torch.is_tensor(x) else like(x, [cut(v, a, b) for v in x])
+
+    parts = [fn(queries[:, a : a + step], *(cut(r, a, a + step) for r in rest)) for a in range(0, n, step)]
+    return like(parts[0], [torch.cat(xs, dim=1) for xs in zip(*parts)])
+
+
 def capture(m: VoxelHashMap, queries: torch.Tensor, neighbors: int = 27, per_voxel_nn: bool = False) -> CandSet:
     """Gather the packed neighborhood windows around ``queries`` (B, N, 3).
 
     With ``per_voxel_nn`` each probed voxel's K points reduce to the two
     nearest the query (first-min tie-break), leaving 2P candidates."""
+    P = neighbors
+    return _by_query_chunks(lambda q: _capture(m, q, neighbors, per_voxel_nn), queries, P * m.K)
+
+
+def _capture(m: VoxelHashMap, queries: torch.Tensor, neighbors: int, per_voxel_nn: bool) -> CandSet:
     B, n, _ = queries.shape
     K, W, s = m.K, m.ways, m.stride
     vs = m.voxel_size.view(B, 1, 1)
@@ -498,17 +564,27 @@ def p2pl_from(
     every candidate within ``search_radius`` (``Matcher_Point2Plane``
     against a point map).  Moments are accumulated query-relative; returns
     ``(plane_pt, normal, dist2, found)``."""
+    kw = dict(search_radius=search_radius, min_plane_points=min_plane_points,
+              plane_eigen_threshold=plane_eigen_threshold)
+    return _by_query_chunks(lambda q, c, v: _p2pl(c, q, v, **kw), queries, cand.mask.shape[-1], cand, valid)
+
+
+def _p2pl(cand: CandSet, queries: torch.Tensor, valid: torch.Tensor, *, search_radius: float,
+          min_plane_points: int, plane_eigen_threshold: float):
     rel = cand.pts - queries[:, :, None, :]  # (B, N, C, 3)
     d2 = torch.sum(rel * rel, dim=-1)
     w = (cand.mask & (d2 <= search_radius * search_radius)).to(torch.float32)
     cnt = torch.sum(w, dim=-1)
-    x, y, z = rel.unbind(-1)
-    mom = torch.stack([x, y, z, x * x, y * y, z * z, x * y, x * z, y * z], dim=-1)
-    sums = torch.sum(w[..., None] * mom, dim=-2)  # (B, N, 9)
+    # the weighted first and second moments as batched products over the
+    # candidates (the JAX package's einsums); w is 0 or 1, so w * rel is exact
+    wrel = rel * w[..., None]
+    s = torch.einsum("bnc,bncd->bnd", w, rel)
+    m2 = torch.einsum("bnci,bncj->bnij", wrel, rel)  # (B, N, 3, 3)
+    ss = torch.stack([m2[..., 0, 0], m2[..., 1, 1], m2[..., 2, 2], m2[..., 0, 1], m2[..., 0, 2], m2[..., 1, 2]], -1)
     nf = torch.clamp(cnt, min=1.0)[..., None]
-    mean_rel = sums[..., :3] / nf  # plane centroid relative to the query
+    mean_rel = s / nf  # plane centroid relative to the query
     mx, my, mz = mean_rel.unbind(-1)
-    cov6 = sums[..., 3:] / nf - torch.stack([mx * mx, my * my, mz * mz, mx * my, mx * mz, my * mz], dim=-1)
+    cov6 = ss / nf - torch.stack([mx * mx, my * my, mz * mz, mx * my, mx * mz, my * mz], dim=-1)
     nrm, e_min, e_mid = linalg.sym_eigen_smallest(cov6)
     plane_ok = (cnt >= min_plane_points) & (e_min <= plane_eigen_threshold * torch.clamp(e_mid, min=1e-12))
     found = valid & plane_ok

@@ -8,14 +8,20 @@ package loads in the other:
     (scalar f32), ``<name>/data`` ((rows, 128) i32, the JAX table layout word
     for word) and ``<name>/epoch`` (scalar i32), an NDT layer also
     ``<name>/max_eigen_ratio`` (scalar f32), plus a JSON ``__meta__`` with
-    each layer's class and a point map's static ``K`` and ``stride``;
+    each layer's class and a point map's static ``K`` and ``stride``; an
+    occupancy layer (kind ``"OccupancyMap"``) holds ``keys``, ``used``,
+    ``logodds`` and the five log-odds scalars under the JAX field names, and
+    its match index as a point map under ``<name>/match/``;
   * ``*.simplemap.npz`` — keyframed trajectory and raw scans, the scans
     optionally externalized to ``<name>_Images/scan_*.bin`` for lazy load.
 
 A port map carries a leading fleet dimension; the file holds one instance
-(B = 1), without it.  Hashed-voxel and NDT layers exist in the port: a file
-with an occupancy layer raises.  The MRPT ``.simplemap``/``.mm`` import and
-export wait for ROADMAP queue A, 'Host surface'.
+(B = 1), without it.  The JAX package's loader reads an occupancy layer's
+fields from such a file but not its match index (its ``save_metric_map``
+cannot write one: ROADMAP C9); an occupancy layer without ``match/`` arrays
+loads here with the index rebuilt from its occupied voxels.  The MRPT
+``.simplemap``/``.mm`` import and export wait for ROADMAP queue A, 'Host
+surface'.
 """
 
 from __future__ import annotations
@@ -27,7 +33,9 @@ from typing import Dict, List, Union
 import numpy as np
 import torch
 
+from mola_lidar_odometry_tpu_torch.ops import occupancy
 from mola_lidar_odometry_tpu_torch.ops.ndt import NdtMap
+from mola_lidar_odometry_tpu_torch.ops.occupancy import OccupancyMap
 from mola_lidar_odometry_tpu_torch.ops.voxel_hash import VoxelHashMap
 
 
@@ -43,21 +51,24 @@ def _npz_path(path: Union[str, Path]) -> str:
 def save_metric_map(path: Union[str, Path], maps: Dict[str, object]) -> None:
     """Persist the local map layers (the '.mm' analogue) of one instance."""
     arrays, meta = {}, {}
-    for name, m in maps.items():
-        if isinstance(m, VoxelHashMap):
-            meta[name] = {"kind": "VoxelHashMap", "K": int(m.K), "stride": int(m.stride)}
-        elif isinstance(m, NdtMap):
-            meta[name] = {"kind": "NdtMap"}
-        else:
-            raise NotImplementedError(
-                f"saving map state {type(m).__name__}: ROADMAP queue A, 'other pipeline families' (item 3.3, occupancy)"
-            )
-        if m.data.shape[0] != 1:
-            raise ValueError(f"save_metric_map: layer {name!r} holds {m.data.shape[0]} instances, the file holds one")
+
+    def put(prefix, m):
+        if m.voxel_size.shape[0] != 1:
+            raise ValueError(f"save_metric_map: layer {prefix!r} holds {m.voxel_size.shape[0]} instances, the file holds one")
         for fld in m._fields:
             v = getattr(m, fld)
             if torch.is_tensor(v):
-                arrays[f"{name}/{fld}"] = v[0].cpu().numpy()
+                arrays[f"{prefix}/{fld}"] = v[0].cpu().numpy()
+
+    for name, m in maps.items():
+        if isinstance(m, VoxelHashMap):
+            meta[name] = {"kind": "VoxelHashMap", "K": int(m.K), "stride": int(m.stride)}
+        elif isinstance(m, OccupancyMap):
+            meta[name] = {"kind": "OccupancyMap", "match": {"K": int(m.match.K), "stride": int(m.match.stride)}}
+            put(f"{name}/match", m.match)
+        else:
+            meta[name] = {"kind": type(m).__name__}
+        put(name, m)
     np.savez_compressed(_npz_path(path), __meta__=json.dumps(meta), **arrays)
 
 
@@ -82,10 +93,23 @@ def load_metric_map(path: Union[str, Path], device="cuda") -> Dict[str, object]:
                 voxel_size=arr("voxel_size", f32), max_eigen_ratio=arr("max_eigen_ratio", f32),
                 data=arr("data", i32), epoch=arr("epoch", i32),
             )
-        else:
-            raise NotImplementedError(
-                f"loading map layer {info['kind']}: ROADMAP queue A, 'other pipeline families' (item 3.3, occupancy)"
+        elif info["kind"] == "OccupancyMap":
+            vs, keys = arr("voxel_size", f32), arr("keys", i32)
+            if f"{name}/match/data" in d:
+                match = VoxelHashMap(
+                    voxel_size=arr("match/voxel_size", f32), data=arr("match/data", i32),
+                    epoch=arr("match/epoch", i32), K=int(info["match"]["K"]), stride=int(info["match"]["stride"]),
+                )
+            else:
+                match = VoxelHashMap.create(keys.shape[1], OccupancyMap.MATCH_POINTS_PER_VOXEL, 1.0, 1, device)
+                match = match._replace(voxel_size=vs * OccupancyMap.MATCH_GRID_FACTOR)
+            m = OccupancyMap(
+                voxel_size=vs, keys=keys, used=arr("used", torch.bool), logodds=arr("logodds", f32), match=match,
+                **{f: arr(f, f32) for f in ("l_hit", "l_miss", "l_min", "l_max", "l_occ")},
             )
+            out[name] = m if f"{name}/match/data" in d else occupancy.rebuild_match(m)[0]
+        else:
+            raise ValueError(f"unknown map layer kind {info['kind']!r}")
     return out
 
 

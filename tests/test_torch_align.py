@@ -152,8 +152,9 @@ def test_non_fused_config_raises(scene):
     """A configuration outside the fused path no longer raises: it runs the
     generic loop, here with a Horn stage and with a single point-to-plane
     matcher (a plane fitted per query to its candidates), which ends where
-    the JAX package's does.  What still raises is the occupancy map class,
-    naming its ROADMAP item."""
+    the JAX package's does.  The occupancy map class no longer raises: it
+    creates the JAX package's state (its log-odds scalars, its match index
+    on the grid 8 times coarser)."""
     from mola_lidar_odometry_tpu_torch.ops import maps as tmaps
 
     jm, tm, local, valid, *_ = scene
@@ -177,5 +178,10 @@ def test_non_fused_config_raises(scene):
         assert abs(int(res.iterations[b]) - int(ref.iterations)) <= 1
         assert abs(float(res.quality[b]) - float(ref.quality)) < 0.02
     assert float(res.quality.min()) > 0.5
-    with pytest.raises(NotImplementedError, match="other pipeline families"):
-        tmaps.MapLayerDef(map_class="CVoxelMap").create(1.0, B, "cpu")
+    from mola_lidar_odometry_tpu.ops import maps as jmaps
+
+    d = dict(map_class="CVoxelMap", num_slots=1 << 12, prob_hit=0.8, occupied_threshold=0.55)
+    om, jom = tmaps.MapLayerDef(**d).create(0.05, B, "cpu"), jmaps.MapLayerDef(**d).create(0.05)
+    for f in ("voxel_size", "keys", "used", "logodds", "l_hit", "l_miss", "l_min", "l_max", "l_occ"):
+        np.testing.assert_array_equal(getattr(om, f)[B - 1].numpy(), np.asarray(getattr(jom, f)), err_msg=f)
+    assert float(om.match.voxel_size[0]) == float(jom.match.voxel_size) and om.match.K == jom.match.K

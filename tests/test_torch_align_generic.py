@@ -186,16 +186,30 @@ def test_point_to_plane_names_its_roadmap_item(scene):
     """Point-to-plane matching against a point map (a plane fitted per
     query to its candidates, ``voxel_hash.p2pl_from``), beside a
     point-to-point matcher on the second map, runs the generic loop as the
-    JAX package does; what still names its ROADMAP item is the occupancy
-    map class."""
+    JAX package does; so does the lidar2d matcher, two pairings per point
+    against an occupancy map (its coarse match index of occupied voxel
+    centers), whose map both packages build equal word for word."""
+    from mola_lidar_odometry_tpu.ops import occupancy as jocc
+    from mola_lidar_odometry_tpu.ops.pointcloud import PointCloud as JPC
     from mola_lidar_odometry_tpu_torch.ops import maps as tmaps
 
     matchers = [dict(kind="point2plane", threshold="1.0*" + ANNEAL),
                 dict(local_layer="icp_near", global_layer="localmap_far", threshold="1.5*" + ANNEAL, weight=0.7)]
     res, its = _align_both(scene, matchers, dict(nn_neighbors=27, max_iterations=30, **HOOK))
     assert float(res.quality[:2].min()) > 0.5 and len(set(its)) > 1
-    with pytest.raises(NotImplementedError, match="other pipeline families"):
-        tmaps.MapLayerDef(map_class="CVoxelMap").create(1.0, B, "cpu")
+
+    pts = _world()
+    d = tmaps.MapLayerDef(map_class="CVoxelMap", num_slots=1 << 14, ray_trace_free_space=False)
+    tm, _ = tmaps.insert_stats(tmaps.set_voxel_size(d.create(1.0, B, "cpu"), 0.125),
+                               TPC.from_xyz(torch.from_numpy(np.stack([pts] * B))), None, d)
+    jm = jax.jit(lambda pc: jocc.insert(jocc.OccupancyMap.create(1 << 14, 0.125), pc, ray_trace=False))(
+        JPC.from_xyz(jnp.asarray(pts)))
+    for f in ("keys", "used", "logodds"):
+        np.testing.assert_array_equal(getattr(tm, f)[2].numpy(), np.asarray(getattr(jm, f)), err_msg=f)
+    np.testing.assert_array_equal(tm.match.data[2].numpy(), np.asarray(jm.match.data))
+    occ = dict(scene, jmaps=dict(scene["jmaps"], localmap=jm), tmaps=dict(scene["tmaps"], localmap=tm))
+    res, its = _align_both(occ, [dict(pairings_per_point=2)], dict(nn_neighbors=27, max_iterations=40, **HOOK))
+    assert float(res.quality[:2].min()) > 0.5 and len(set(its)) > 1
 
 
 @pytest.mark.parametrize(

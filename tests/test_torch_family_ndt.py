@@ -17,7 +17,8 @@ parity tests do.
 
 ``step_both`` is shared by the other family files
 (``test_torch_family_intensity.py``, ``test_torch_family_edges.py``,
-``test_torch_family_kissicp_nearfar.py``)."""
+``test_torch_family_kissicp_nearfar.py``, ``test_torch_family_lidar2d.py``,
+``test_torch_family_rgbd.py``)."""
 
 import os
 
@@ -60,18 +61,24 @@ def _rot_angle(Ra: np.ndarray, Rb: np.ndarray) -> float:
 
 
 def _live_voxels(m) -> int:
-    """Live slots of a map layer of either package."""
+    """Live slots of a map layer of either package (an occupancy map's
+    occupied voxels)."""
+    if hasattr(m, "logodds"):
+        n = m.occupied()
+        return int(np.sum(np.asarray(n[0] if torch.is_tensor(n) else n)))
     n = m.n if hasattr(m, "max_eigen_ratio") else m.count  # an NDT map's voxels, a point map's
     n = n() if callable(n) else n
     return int(np.sum(np.asarray(n[0] if torch.is_tensor(n) else n) > 0))
 
 
 def step_both(rel, knobs, frames=FRAMES, intensity=None, scan_kw=None, trans_tol=TRANS_TOL, rot_tol=ROT_TOL,
-              voxel_tol=0, **caps):
-    """Step both packages' ``LidarOdometry`` over the same frames; returns
-    (worst translation difference, worst rotation difference, JAX outputs,
-    port outputs, the two instances).  ``voxel_tol`` bounds the relative
-    difference of a map layer's live voxels (0: equal)."""
+              voxel_tol=0, sequence=None, **caps):
+    """Step both packages' ``LidarOdometry`` over the same frames
+    (``sim.simulate_sequence(frames, **scan_kw)``, or ``sequence``, a
+    ``(trajectory, scans)`` pair); returns (worst translation difference,
+    worst rotation difference, JAX outputs, port outputs, the two
+    instances).  ``voxel_tol`` bounds the relative difference of a map
+    layer's live voxels (0: equal)."""
     from mola_lidar_odometry_tpu.models.odometry import LidarOdometry as JLO
 
     path = os.path.join(PIPELINES, rel)
@@ -83,7 +90,7 @@ def step_both(rel, knobs, frames=FRAMES, intensity=None, scan_kw=None, trans_tol
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        traj, scans = sim.simulate_sequence(frames, **dict(dict(speed=2.0, noise=0.01), **(scan_kw or {})))
+        traj, scans = sequence or sim.simulate_sequence(frames, **dict(dict(speed=2.0, noise=0.01), **(scan_kw or {})))
         jlo, tlo = JLO.from_yaml_file(path, env={}, **caps), TLO.from_yaml_file(path, env={}, device="cpu", **caps)
         worst_t = worst_r = worst_v = 0.0
         jouts, touts = [], []

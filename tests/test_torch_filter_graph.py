@@ -1,8 +1,7 @@
 """Port parity: the filter graphs (``models/filter_graph.py``) of the
 lidar3d-intensity, lidar3d-edges and rgbd pipelines against the JAX
 package's, compiled by both from the YAML and run on the scans of
-``test_torch_filters_other.py``; unknown classes; lidar2d's and rgbd's
-raises."""
+``test_torch_filters_other.py``; unknown classes."""
 
 import os
 
@@ -65,16 +64,3 @@ def test_unknown_filter_and_generator_classes_raise():
         tfg.build_generator_pipeline([{"class_name": "mp2p_icp_filters::GeneratorNope"}])
     with pytest.raises(ValueError, match="Unknown decimate method"):
         tf.decimate_voxels(TPC.empty(8, 1, device="cpu"), 1.0, 8, method="Nope")
-
-
-@pytest.mark.parametrize("rel,item", [("lidar2d.yaml", "item 3.3, occupancy"), ("rgbd.yaml", "item 3.4, rgbd")])
-def test_pipeline_not_yet_ported_names_its_roadmap_item(rel, item):
-    """lidar2d (the occupancy map, when its map is created) and rgbd
-    (point-to-plane against a point map, when its step is built) still
-    raise, naming their queue A item."""
-    from mola_lidar_odometry_tpu_torch.models.odometry import LidarOdometry as TLO
-
-    caps = dict(raw_capacity=4096, map_slots=1 << 12, layer_capacities={"raw": 4096})
-    with pytest.raises(NotImplementedError, match="other pipeline families") as err:
-        TLO.from_yaml_file(os.path.join(HERE, "..", "pipelines", rel), env={}, device="cpu", **caps)
-    assert item in str(err.value)

@@ -29,7 +29,7 @@ def test_every_port_module_is_listed():
         "ops.se3", "ops.filters", "ops.voxel_hash", "ops.pallas_capture", "ops.pallas_icp",
         "ops.pallas_match", "ops.solver", "ops.maps", "ops.icp", "models.step", "parallel.batch", "utils.carry_io", "utils.sim",
         "models.odometry", "utils.runtime", "utils.capacity", "utils.exact_filters", "utils.serialization",
-        "utils.profiler",
+        "utils.profiler", "ops.ndt", "ops.occupancy",
     ):
         assert f"{port.__name__}.{expected}" in mods
 
