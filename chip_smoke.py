@@ -104,16 +104,47 @@ Phases, one line of numbers each:
                width).
                Last the generic loop's twist-correction rounds:
                lidar3d-dual-map over 4 scans with the rerun thresholds at
-               5 mm and 0.1 degree must run at least one round.
+               5 mm and 0.1 degree must run at least one round;
+ 10. surface — the host surface a user starts, in a temporary directory:
+               native/libmola_tpu_native.so built with make when missing;
+               the 8 bench scans written as a KITTI-layout sequence
+               (velodyne/*.bin, times.txt, identity calib.txt, poses/00.txt);
+               the port's CLI run in process (apps/cli.py, the body of its
+               main) on lidar3d-default pinned to the JAX CLI's default
+               capacities (131072 raw points, 262144 slots: mean quality and
+               GT error within QUALITY_SPREAD and GT_SPREAD of the JAX
+               package's CPU figures, which miss the bench's 0.20) and as a
+               user runs it, sized from the first scan, once with the ICP
+               logs off and once with
+               MP2P_ICP_GENERATE_DEBUG_FILES=1 and decimation 3 (frames 0, 3
+               and 6 replayed through kernel B4, 30 iterations each) writing
+               TUM, simple-map and local-map outputs: every frame accepted
+               and read by the native decoder, mean quality > 0.9,
+               final-pose GT error against poses/00.txt < 0.20 (and both
+               within the spreads of the JAX package's figures), the sizes and
+               poses equal to an in-process LidarOdometry auto-sized by
+               itself (poses to 1e-6 m and 1e-6 rad), each log's pairing
+               counts 0 at frame 0 and > 0 later; the kernel calls of that
+               instance's frames 3 (logged) and 4 held against their twins
+               (B1, B2, B4 bit for bit, B3 within phase 3's tolerance) and
+               the syncs of frame 3 counted; the simple-map and local map
+               converted to MRPT .simplemap and .mm with apps/convert.py and
+               read back word for word; the launcher (apps/launcher.py) on
+               launchs/lidar_odometry_from_rosbag2.yaml over an MCAP bag of
+               the same scans through AsyncLidarOdometry: no drops, every
+               frame accepted.  Prints the CLI's ms per scan with the logs
+               off and on, the replay's ms per logged frame and the
+               launcher's ms per scan.
 
 Then one JSON line describing every kernel (launches summed over phases
-4-9), the card's name and power limit, and last the JSON result line.  Any
+4-10), the card's name and power limit, and last the JSON result line.  Any
 failure raises and exits non-zero.  It imports nothing of JAX and nothing of
 the JAX package.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -187,6 +218,16 @@ JAX_FIGURES = {
                     quality=[1.0, 0.7060703039169312, 0.7875399589538574, 0.7703348994255066, 0.7543859481811523,
                              0.7170111536979675, 0.6898733973503113, 0.6610169410705566, 0.5469697117805481,
                              0.5267175436019897, 0.4726443886756897, 0.4494720995426178]),
+    # phase 10: the JAX package's CLI at its default capacities (131072 raw
+    # points, 262144 slots) and its LidarOdometry sized from the first scan,
+    # over the 8 bench scans as a KITTI sequence
+    # (JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_cli.py 8)
+    "cli pinned": dict(iterations=[0, 4, 4, 5, 10, 23, 28, 25], final_pose_gt_error=0.22812950611114502,
+                       quality=[1.0, 1.0, 0.9980778694152832, 0.9952448606491089, 0.9918699264526367,
+                                0.973519504070282, 0.9943073987960815, 0.9852731823921204]),
+    "cli derived": dict(iterations=[0, 6, 6, 23, 24, 23, 24, 26], final_pose_gt_error=0.18492481112480164,
+                        quality=[1.0, 1.0, 0.9990389347076416, 0.9952448606491089, 0.9923481345176697,
+                                 0.97398841381073, 0.9971536993980408, 0.9862232804298401]),
 }
 # Phase 9 (and phase 6's lidar2d): the 2D scans of the JAX package's
 # test_lidar2d_family_parity (tests/test_oracle_parity.py) at its explicit
@@ -1360,8 +1401,290 @@ def phase_lidar2d_rgbd(dev, recs, scans, traj):
     return {k: total[k] + launches[k] for k in total}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the host surface — the CLI on a KITTI layout, MRPT files, the
+# launcher on an MCAP bag
+# ---------------------------------------------------------------------------
+
+SURFACE_KERNELS = MAIN_KERNELS + DUALMAP_KERNELS  # B1-B3 in the CLI's step, B4 in its ICP-log replay
+
+
+@contextlib.contextmanager
+def environ(**kv):
+    """``os.environ`` with ``kv`` set (``None`` unsets a name) while open."""
+    def put(items):
+        for k, v in items:
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+
+    saved = [(k, os.environ.get(k)) for k in kv]
+    put(kv.items())
+    try:
+        yield
+    finally:
+        put(saved)
+
+
+@contextlib.contextmanager
+def step_outputs(outs):
+    """While open, the host output of every ``LidarOdometry.on_lidar_scan``
+    (the CLI's own, inside its loop) is appended to ``outs``."""
+    from mola_lidar_odometry_tpu_torch.models.odometry import LidarOdometry
+
+    orig = LidarOdometry.on_lidar_scan
+
+    def spy(self, *a, **k):
+        outs.append(orig(self, *a, **k))
+        return outs[-1]
+
+    LidarOdometry.on_lidar_scan = spy
+    try:
+        yield outs
+    finally:
+        LidarOdometry.on_lidar_scan = orig
+
+
+def build_native():
+    """The repo's native host library (KITTI .bin decode), built from
+    ``native/`` with its Makefile when it is missing; returns the binding."""
+    from mola_lidar_odometry_tpu_torch.utils import native
+
+    if not native.available():
+        t0 = time.time()
+        subprocess.run(["make", "-C", os.path.join(HERE, "native")], check=True, capture_output=True)
+        native._TRIED = False  # probe again
+        log(f"surface: built native/libmola_tpu_native.so in {time.time() - t0:.1f} s")
+    if not native.available():
+        raise AssertionError("surface: the native library did not build")
+    return native
+
+
+def write_kitti(root, scans, traj):
+    """A KITTI-layout sequence 00 of ``scans``: velodyne/*.bin (x, y, z,
+    intensity f32 of the valid points), times.txt, an identity calib.txt
+    and poses/00.txt from the trajectory."""
+    seq = os.path.join(root, "sequences", "00")
+    os.makedirs(os.path.join(seq, "velodyne"))
+    os.makedirs(os.path.join(root, "poses"))
+    for k, (xyz, _, _, valid) in enumerate(scans):
+        pts = np.zeros((int(valid.sum()), 4), np.float32)
+        pts[:, :3] = xyz[valid]
+        pts.tofile(os.path.join(seq, "velodyne", f"{k:06d}.bin"))
+    with open(os.path.join(seq, "times.txt"), "w") as f:
+        f.writelines(f"{traj.stamps[k]:.6f}\n" for k in range(len(scans)))
+    with open(os.path.join(seq, "calib.txt"), "w") as f:
+        f.write("Tr: 1 0 0 0 0 1 0 0 0 0 1 0\n")
+    with open(os.path.join(root, "poses", "00.txt"), "w") as f:
+        for k in range(len(scans)):
+            T = np.concatenate([traj.R[k], traj.t[k][:, None]], axis=1)
+            f.write(" ".join(f"{v:.9f}" for v in T.reshape(-1)) + "\n")
+
+
+def tum_gap(a, b):
+    """Largest translation (m) and rotation (rad) difference between two
+    TUM files' poses, row by row (float64; the rotation angle by the stable
+    2 atan2(|qa - qb|, |qa + qb|))."""
+    from mola_lidar_odometry_tpu_torch.utils import tum
+
+    (sa, ta, qa), (sb, tb, qb) = tum.load_tum(a), tum.load_tum(b)
+    if len(sa) != len(sb) or not np.array_equal(sa, sb):
+        raise AssertionError(f"surface: {a} and {b} hold other stamps")
+    qb = qb * np.sign(np.sum(qa * qb, axis=1, keepdims=True))
+    ang = 2 * np.arctan2(np.linalg.norm(qa - qb, axis=1), np.linalg.norm(qa + qb, axis=1))
+    return float(np.abs(ta - tb).max()), float(ang.max())
+
+
+def gt_error_tum(est_path, gt_path) -> float:
+    """Gauge-aligned SE(3) log-norm error of the last pose of a TUM file
+    against a ground-truth TUM file (relative to its first pose)."""
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.ops import se3
+    from mola_lidar_odometry_tpu_torch.utils import tum
+
+    (_, te, qe), (_, tg, qg) = tum.load_tum(est_path), tum.load_tum(gt_path)
+
+    def P(t, q):
+        f = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
+        return se3.Pose(se3.quat_to_rot(f(q)), f(t))
+
+    rel = se3.relative(se3.relative(P(tg[0], qg[0]), P(tg[-1], qg[-1])), P(te[-1], qe[-1]))
+    return float(torch.linalg.norm(se3.se3_log(rel)))
+
+
+def phase_surface(dev, recs, scans, traj):
+    """Phase 10: the host surface on the card (see the module docstring);
+    returns each kernel's launches in this phase (the CLI run with the ICP
+    logs on, and the launcher)."""
+    import tempfile
+
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.apps import cli, convert, datasets as D, launcher
+    from mola_lidar_odometry_tpu_torch.models.odometry import LidarOdometry
+    from mola_lidar_odometry_tpu_torch.utils import mcap, serialization as S, tum
+
+    card = torch.cuda.get_device_name(0)
+    native = build_native()
+    pipe = os.path.join(HERE, "pipelines", "lidar3d-default.yaml")
+    n, warm = len(scans), 2
+    launches = {r["name"]: 0 for r in recs}
+
+    def count(fn):
+        for r in recs:
+            r["wrapper"].launches = 0
+        out = fn()
+        for r in recs:
+            launches[r["name"]] += r["wrapper"].launches
+        return out
+
+    def med_ms(lo, span, first=warm):
+        return 1e3 * float(np.median(lo.profiler.times(span)[first:]))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_kitti(tmp, scans, traj)
+        base = ["-c", pipe, "--input-kitti-seq", "00", "--kitti-correction-angle-deg", "0", "-v", "ERROR",
+                "--device", dev]
+        outs = [os.path.join(tmp, x) for x in ("cli.tum", "cli.simplemap.npz", "cli.mm.npz")]
+        full = base + ["--output-tum-path", outs[0], "--output-simplemap", outs[1], "--output-local-map", outs[2]]
+        for d in ("default", "off", "inproc"):
+            os.makedirs(os.path.join(tmp, d))
+        with environ(KITTI_BASE_DIR=tmp, MP2P_ICP_GENERATE_DEBUG_FILES=None):
+            # pinned to the JAX CLI's default capacities
+            pinned_outs = []
+            with contextlib.chdir(os.path.join(tmp, "default")), step_outputs(pinned_outs):
+                lo_def = cli.run(base + ["--raw-capacity", str(1 << 17), "--map-slots", str(1 << 18),
+                                         "--output-tum-path", os.path.join(tmp, "default.tum")])
+            with contextlib.chdir(os.path.join(tmp, "off")):
+                lo_off = cli.run(base + ["--output-tum-path", os.path.join(tmp, "off.tum")])
+            with environ(MP2P_ICP_GENERATE_DEBUG_FILES=1, MP2P_ICP_LOG_FILES_DECIMATION=3), contextlib.chdir(tmp):
+                decodes = native.decode_bin.calls
+                cli_outs = []
+                with step_outputs(cli_outs):
+                    lo = count(lambda: cli.run(full))
+                decodes = native.decode_bin.calls - decodes
+                # the same dataset frames into an in-process instance, auto-sized
+                # by LidarOdometry itself, with the logs on; its kernel calls of
+                # a logged and an ordinary frame are recorded
+                ds = D.KittiOdometryDataset("00", vertical_angle_correction_deg=0.0)
+                calls, syncs = [], None
+                with contextlib.chdir(os.path.join(tmp, "inproc")):
+                    ref = LidarOdometry.from_yaml_file(pipe, device=dev)
+                    for i in range(len(ds)):
+                        fr = ds.get(i)
+                        rec = recording(recs, calls) if i in (3, 4) else contextlib.nullcontext()
+                        with rec, flagged_syncs(i == 3) as hits:
+                            ref.on_lidar_scan(fr.xyz, fr.stamp, times=fr.times, intensity=fr.intensity, ring=fr.ring)
+                        if i == 3:
+                            syncs = hits
+                    ref.save_trajectory_tum(os.path.join(tmp, "inproc.tum"))
+        def sizes(spec):
+            return (spec.raw_capacity, spec.layer_capacities, [(d.num_slots, d.insert_budget) for d in spec.map_layers])
+
+        q = np.array([float(o.quality) for o in cli_outs])
+        gt_err = gt_error_tum(outs[0], outs[0] + ".gt.tum")
+        gap = tum_gap(outs[0], os.path.join(tmp, "inproc.tum"))
+        gap_off = tum_gap(outs[0], os.path.join(tmp, "off.tum"))
+        q_def = np.array([float(o.quality) for o in pinned_outs])
+        gt_def = gt_error_tum(os.path.join(tmp, "default.tum"), outs[0] + ".gt.tum")
+        guards, guards_def = reference_guards("cli derived"), reference_guards("cli pinned")
+        log(f"surface: CLI on a KITTI layout of the {n} bench scans ({len(scans[0][0])} rays, "
+            f"{[int(v.sum()) for _, _, _, v in scans]} points), {decodes} decodes by the native library; "
+            f"sized from the first scan: raw, layers, (slots, insert budget) {sizes(lo.spec)}; iterations per scan "
+            f"{[int(o.iterations) for o in cli_outs]}; mean quality (scans > 0) {q[1:].mean():.4f}; final-pose "
+            f"GT error against poses/00.txt {gt_err:.4f}")
+        print_reference("cli derived", guards)
+        log(f"surface: pinned to the JAX CLI's defaults {sizes(lo_def.spec)}: iterations per scan "
+            f"{[int(o.iterations) for o in pinned_outs]}; mean quality (scans > 0) {q_def[1:].mean():.4f}; "
+            f"final-pose GT error {gt_def:.4f}")
+        print_reference("cli pinned", guards_def)
+        log(f"surface: CLI poses against the in-process instance: {gap[0]:.3g} m, {gap[1]:.3g} rad (limit 1e-6); "
+            f"against the CLI with the logs off: {gap_off[0]:.3g} m, {gap_off[1]:.3g} rad")
+        failures = guard_failures(float(q[1:].mean()), gt_err, guards)
+        failures += [f"pinned: {f}" for f in guard_failures(float(q_def[1:].mean()), gt_def, guards_def)]
+        if len(pinned_outs) != n or not all(bool(o.accepted) for o in pinned_outs):
+            failures.append(f"pinned: frames not all accepted: {[bool(o.accepted) for o in pinned_outs]}")
+        if sizes(ref.spec) != sizes(lo.spec):
+            failures.append(f"the CLI's derived sizes {sizes(lo.spec)} differ from LidarOdometry's {sizes(ref.spec)}")
+        if len(cli_outs) != n or not all(bool(o.accepted) for o in cli_outs) or len(lo.trajectory) != n:
+            failures.append(f"frames not all accepted: {[bool(o.accepted) for o in cli_outs]}")
+        if decodes != n + 1:  # the first scan is read once more, to size the buffers
+            failures.append(f"{decodes} decodes by the native library for {n} frames (+1 to size)")
+        if not (gap[0] <= 1e-6 and gap[1] <= 1e-6):
+            failures.append(f"the CLI's poses differ from the in-process instance's by {gap}")
+        logs = sorted(os.listdir(os.path.join(tmp, "icp-logs")))
+        if logs != [f"icp-run-{k:06d}.icplog.npz" for k in (0, 3, 6)]:
+            failures.append(f"ICP logs {logs}, expected frames 0, 3 and 6")
+        for name in logs:
+            d = np.load(os.path.join(tmp, "icp-logs", name))
+            first = name.endswith("000000.icplog.npz")
+            ok = (not d["paired"].any()) if first else bool((d["paired"] > 0).all())
+            ok = ok and "pair_details" in d and all(np.isfinite(d[k]).all() for k in ("poses_R", "poses_t"))
+            log(f"surface: {name}: paired {d['paired'][[0, 1, -1]].tolist()} (first, second, last of "
+                f"{len(d['paired'])}), quality {float(d['quality']):.4f}, pair details {d['pair_details'].shape}")
+            if not ok:
+                failures.append(f"{name}: paired {d['paired'].tolist()}")
+        if failures:
+            raise AssertionError("surface: " + "; ".join(failures))
+        replay = [1e3 * x for x in lo.profiler.times("onLidar.icp_log.replay")]
+        log(f"surface: CLI ms per scan (median over scans {warm}..{n - 1}, onLidar) {med_ms(lo_off, 'onLidar'):.2f} "
+            f"with the ICP logs off, {med_ms(lo, 'onLidar'):.2f} with them on (every 3rd scan logged), "
+            f"{med_ms(lo_def, 'onLidar'):.2f} pinned to the JAX CLI's defaults on {card}; "
+            f"the replay (30 iterations, B4 once each) {[round(x, 2) for x in replay]} ms per logged frame, "
+            f"writing the log {[round(1e3 * x, 2) for x in lo.profiler.times('onLidar.icp_log.write')]} ms")
+        log(f"surface: host syncs flagged by torch in logged frame 3: {len(syncs)}; by call site: " + ", ".join(
+            f"{k} x{v}" for k, v in collections.Counter(
+                f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in syncs).most_common()))
+
+        # MRPT files: the simple-map and the local map through convert, read back
+        sm, mm = os.path.join(tmp, "cli.simplemap"), os.path.join(tmp, "cli.mm")
+        if convert.main([outs[1], sm]) != 0 or convert.main([outs[2], mm, "--device", dev]) != 0:
+            raise AssertionError("surface: convert failed")
+        kfs, back = S.load_simplemap(outs[1]), S.import_simplemap_mrpt(sm)
+        same_sm = len(kfs) == len(back) > 0 and all(
+            np.array_equal(a.t, b.t) and np.array_equal(a.quat_xyzw, b.quat_xyzw)
+            and (a.scan_xyz is None) == (b.scan_xyz is None)
+            and (a.scan_xyz is None or np.array_equal(a.scan_xyz.astype(np.float32), b.scan_xyz))
+            for a, b in zip(kfs, back))
+        want = S.metric_map_points(S.load_metric_map(outs[2], device=dev))
+        got = S.import_metric_map_mrpt(mm)
+        same_mm = sorted(got) == sorted(want) and all(
+            np.array_equal(got[k].view(np.int32), want[k].view(np.int32)) for k in got)
+        log(f"surface: MRPT files: {len(back)} keyframes in cli.simplemap ({sum(b.scan_xyz is not None for b in back)} "
+            f"with their scan), {', '.join(f'{k} {len(v)} points' for k, v in got.items())} in cli.mm; read back "
+            f"{'word for word' if same_sm and same_mm else 'DIFFERENT'}")
+        if not (same_sm and same_mm):
+            raise AssertionError("surface: the MRPT files do not read back word for word")
+
+        # the launcher on the repo's rosbag2 launch file, over an MCAP bag
+        bag = os.path.join(tmp, "bench.mcap")
+        mcap.write_pointcloud2_mcap(bag, [
+            (float(traj.stamps[k]) + 1.0, xyz[valid], dict(times=times[valid], ring=rings[valid].astype(np.uint16)))
+            for k, (xyz, times, rings, valid) in enumerate(scans)])
+        os.makedirs(os.path.join(tmp, "results"))
+        with environ(MOLA_INPUT_ROSBAG2=bag, MOLA_ODOMETRY_PIPELINE_YAML=pipe,
+                     MP2P_ICP_GENERATE_DEBUG_FILES=None), contextlib.chdir(tmp):
+            llo, rt = count(lambda: launcher.launch(os.path.join(HERE, "launchs", "lidar_odometry_from_rosbag2.yaml"),
+                                                    device=dev))
+        stamps, _, _ = tum.load_tum(os.path.join(tmp, "results", "rosbag2.tum"))
+        log(f"surface: launcher (launchs/lidar_odometry_from_rosbag2.yaml, AsyncLidarOdometry): "
+            f"{llo.frames_processed} frames processed, {len(llo.trajectory)} accepted, {rt.dropped_observations} "
+            f"dropped, {len(stamps)} poses in results/rosbag2.tum; {med_ms(llo, 'onLidar'):.2f} ms per scan "
+            f"(median over scans {warm}..{n - 1}, onLidar) on {card}")
+        if rt.dropped_observations or rt.fatal_error or len(llo.trajectory) != n or len(stamps) != n:
+            raise AssertionError("surface: the launcher dropped or rejected frames")
+    log("surface: launches " + ", ".join(f"{k}={v}" for k, v in launches.items()))
+    never = [k for k in SURFACE_KERNELS if launches[k] <= 0]
+    if never:
+        raise AssertionError(f"surface: {never} never launched")
+    check_recorded("surface: CLI frames 3 (logged) and 4", calls, SURFACE_KERNELS)
+    return launches
+
+
 def phase_paths(dev, recs):
-    """Phases 4-9 over the bench's simulated sequence (and lidar2d's 2D
+    """Phases 4-10 over the bench's simulated sequence (and lidar2d's 2D
     scans); fills ``launches`` of every record with the sum over them."""
     t0 = time.time()
     scans, traj = bench_scans(N_SCANS)
@@ -1386,8 +1709,9 @@ def phase_paths(dev, recs):
     ndt_l = phase_ndt(dev, recs, scans, traj)
     extra_l = phase_extras(dev, recs, scans, traj)
     l9 = phase_lidar2d_rgbd(dev, recs, scans, traj)
+    l10 = phase_surface(dev, recs, scans, traj)
     for r in recs:
-        r["launches"] = sum(ls[r["name"]] for ls in (main_l, dual_l, host_l, ndt_l, extra_l, l9))
+        r["launches"] = sum(ls[r["name"]] for ls in (main_l, dual_l, host_l, ndt_l, extra_l, l9, l10))
         del r["wrapper"]
     never = [r["name"] for r in recs if r["launches"] <= 0]
     if never:

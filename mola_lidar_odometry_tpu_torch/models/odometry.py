@@ -18,6 +18,10 @@ float64 tensor); everything the host does with the output reads that numpy
 copy.  The output ``on_lidar_scan`` returns is that copy: a ``StepOutput``
 of numpy values without the fleet dimension.
 
+With ``MP2P_ICP_GENERATE_DEBUG_FILES=1`` every
+``MP2P_ICP_LOG_FILES_DECIMATION``-th scan's align is first replayed on the
+pre-step carry and written as an ICP log (``utils/icp_log.py``).
+
 Entry points run on the card: ``device="cuda"`` is the default, and without
 a card the constructor raises; ``device="cpu"`` runs the plain twins of the
 kernels on the CPU.
@@ -93,11 +97,6 @@ class LidarOdometry:
 
     def __init__(self, spec: OdometrySpec, device="cuda"):
         self.device = resolve_device(device)
-        if os.environ.get("MP2P_ICP_GENERATE_DEBUG_FILES", "0") == "1":
-            raise NotImplementedError(
-                "MP2P_ICP_GENERATE_DEBUG_FILES=1 needs utils/icp_log.py::replay_align_with_trace: "
-                "ROADMAP queue A, 'Host surface'"
-            )
         self.spec = spec
         self.profiler = Profiler(enabled=True)
         # the step is built at the first scan when pin_se2 is None (auto):
@@ -110,6 +109,13 @@ class LidarOdometry:
         self.reset()
         self.active = spec.start_active
         self._label_regexes = [re.compile(s) for s in spec.lidar_sensor_labels]
+        # ICP debug logs (.icplog analogue), enabled like the reference via
+        # MP2P_ICP_GENERATE_DEBUG_FILES=1 (pipelines/lidar3d-default.yaml:177)
+        self._icp_log = None
+        if os.environ.get("MP2P_ICP_GENERATE_DEBUG_FILES", "0") == "1":
+            from mola_lidar_odometry_tpu_torch.utils.icp_log import IcpLogWriter
+
+            self._icp_log = IcpLogWriter(decimation=int(os.environ.get("MP2P_ICP_LOG_FILES_DECIMATION", 10)))
         # session preload (reference LidarOdometry.cpp:465-476; YAML
         # load_existing_local_map / load_existing_simple_map)
         self._closed = False
@@ -337,6 +343,9 @@ class LidarOdometry:
             with prof.enter("onLidar"):
                 with prof.enter("pad"):  # host padding and the copy to the device
                     scan = self._pad_scan(xyz, stamp, times, intensity, ring)
+                if self._icp_log is not None and self._icp_log.want_frame():
+                    with prof.enter("icp_log"):  # the replay on the pre-step carry
+                        self._write_icp_log(scan)
                 with prof.enter("step"):  # issuing the step (and its own syncs)
                     self.carry, out = self._step(self.carry, scan)
                 with prof.enter("readback"):  # waits for the device
@@ -348,6 +357,55 @@ class LidarOdometry:
             # discards further input (LidarOdometry.cpp:614-619)
             self._fatal_error = True
             raise
+
+    # -- ICP debug logs (.icplog analogue; utils/icp_log.py) ----------------
+    def _write_icp_log(self, scan: Scan, n_iters: int = 30) -> None:
+        """Replay the align of this scan on the PRE-step carry with a fixed
+        ``n_iters`` schedule (``utils/icp_log.py``) and write its log; the
+        logged quality is the pre-step carry's.  One host copy, after the
+        replay."""
+        from mola_lidar_odometry_tpu_torch.models.filter_graph import apply_pipeline
+        from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud
+        from mola_lidar_odometry_tpu_torch.utils.icp_log import replay_align_with_trace
+
+        # reference decimationIterationDetails (lidar3d-default.yaml:180):
+        # full pairing details every Nth iteration; 0 disables the details
+        detail_every = int(os.environ.get("MP2P_ICP_LOG_ITER_DETAILS", 3))
+        spec, carry, prof = self.spec, self.carry, self.profiler
+        with prof.enter("replay"):  # issue, then wait for the one host copy
+            env = step_mod._dynamic_env(spec, carry, scan.stamp)
+            layers = {"raw": PointCloud(scan.xyz, scan.time, scan.intensity, scan.ring, scan.valid)}
+            for pl in (spec.generator_pipeline, spec.adjust_pipeline, spec.filter1, spec.filter2):
+                layers = apply_pipeline(pl, layers, env)
+            nav = ns.estimate(carry.nav, spec.navstate, scan.stamp)
+            v = nav.valid[:, None]
+            pose0 = se3.Pose(torch.where(v[..., None], nav.pose.R, carry.pose_R),
+                             torch.where(v, nav.pose.t, carry.pose_t))
+            cfg = spec.icp_with_vel
+            icp_layers = {mc.local_layer: (layers[mc.local_layer].xyz, layers[mc.local_layer].valid)
+                          for mc in cfg.matchers}
+            Rs, ts, paired, det = replay_align_with_trace(
+                carry.maps, icp_layers, pose0, nav.prior, cfg, env, n_iters, detail_every=detail_every,
+            )
+            # one instance: every part is (1, ...); paired counts are exact in f32
+            parts = [Rs, ts, paired.to(torch.float32), pose0.R, pose0.t, carry.last_icp_quality, scan.stamp]
+            parts += [det] if det is not None else []
+            flat = torch.cat([p.reshape(-1).to(torch.float32) for p in parts]).cpu().numpy()
+        with prof.enter("write"):
+            vals, k = [], 0
+            for p in parts:
+                vals.append(flat[k : k + p.numel()].reshape(p.shape[1:]))
+                k += p.numel()
+            Rs, ts, paired, p0R, p0t, quality, stamp = vals[:7]
+            extra = {"pose0_R": p0R, "pose0_t": p0t}  # align entry pose: detail slot 0 was recorded here
+            if det is not None:
+                # per-detail-iteration pairings: [lx ly lz tx ty tz d2 valid]
+                extra["pair_details"] = vals[7]
+                extra["detail_iters"] = np.arange(0, n_iters, detail_every, dtype=np.int32)
+            self._icp_log.log(
+                frame_idx=self.frames_processed, stamp=float(stamp), poses_R=Rs, poses_t=ts,
+                paired=paired.astype(np.int32), quality=float(quality), iterations=n_iters, extra=extra,
+            )
 
     # -- internals ---------------------------------------------------------
     def _pad_scan(self, xyz, stamp, times, intensity, ring) -> Scan:

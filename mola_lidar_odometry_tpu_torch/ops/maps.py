@@ -220,9 +220,10 @@ def query_p2pl(state, queries, valid, *, search_radius: float = 0.8, min_plane_p
     )
 
 
-def as_pointcloud(state, capacity: int, anchor) -> PointCloud:
+def as_pointcloud(state, capacity: int, anchor=None) -> PointCloud:
     """Flatten a map layer to a point view: a point map's points (the
-    wrapped keys unwrapped near ``anchor`` (B, 3), the robot pose), an NDT
+    wrapped keys unwrapped near ``anchor`` (B, 3), the robot pose, or
+    without one near the anchor its live keys give), an NDT
     map's live voxel means, an occupancy map's occupied voxel centers."""
     if isinstance(state, voxel_hash.VoxelHashMap):
         return voxel_hash.as_pointcloud(state, capacity, anchor)

@@ -30,7 +30,8 @@ whole-table copy per step; callers must not keep the pre-insert table.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -159,6 +160,14 @@ class VoxelHashMap(NamedTuple):
         state = self.windows()[..., 1]
         fresh = ((state >> 16) & 0xFFFF) == self.epoch16[:, None]
         return torch.where(fresh, state & 0xFFFF, 0)
+
+    def num_points(self) -> torch.Tensor:
+        """(B,) live points."""
+        return torch.sum(self.count(), dim=-1)
+
+    def num_voxels(self) -> torch.Tensor:
+        """(B,) live voxels."""
+        return torch.sum(self.count() > 0, dim=-1)
 
     def is_empty(self) -> torch.Tensor:
         return torch.all(self.count() == 0, dim=-1)
@@ -593,17 +602,47 @@ def _p2pl(cand: CandSet, queries: torch.Tensor, valid: torch.Tensor, *, search_r
     return plane_pt, nrm, torch.where(found, dpl * dpl, torch.inf), found
 
 
-def as_pointcloud(m: VoxelHashMap, capacity: int, anchor: torch.Tensor) -> PointCloud:
+def derive_anchor_vox(m: VoxelHashMap) -> torch.Tensor:
+    """(B, 3) i32 unwrap anchors derived from the map's own live keys
+    (``voxel_hash.derive_anchor_vox`` of the JAX package): per axis the
+    live wrapped key values are angles on a circle of period ``2^bits``,
+    and their circular mean, rounded and made signed, is the anchor.  Every
+    live voxel of a map within half the wrap range unwraps exactly relative
+    to it; the absolute offset is exact modulo the wrap period."""
+    win = m.windows()
+    pkey = win[..., 0]
+    wt = (m.count() > 0).to(torch.float32)  # (B, V)
+    nf = torch.clamp(torch.sum(wt, dim=-1), min=1.0)
+
+    def axis_mean(u, period):
+        theta = u.to(torch.float32) * (2.0 * math.pi / period)
+        c = torch.sum(torch.cos(theta) * wt, dim=-1) / nf
+        s = torch.sum(torch.sin(theta) * wt, dim=-1) / nf
+        a = torch.round(torch.atan2(s, c) * (period / (2.0 * math.pi))).to(torch.int32)
+        return ((a + period // 2) & (period - 1)) - period // 2
+
+    ux = (pkey >> (_PKY_BITS + _PKZ_BITS)) & (_PKX - 1)
+    uy = (pkey >> _PKZ_BITS) & (_PKY - 1)
+    uz = pkey & (_PKZ - 1)
+    return torch.stack([axis_mean(ux, _PKX), axis_mean(uy, _PKY), axis_mean(uz, _PKZ)], dim=-1)
+
+
+def as_pointcloud(m: VoxelHashMap, capacity: int, anchor: Optional[torch.Tensor] = None) -> PointCloud:
     """Flatten the live voxel contents into a ``(B, capacity)`` PointCloud
     (viz, map publishing, export), valid points first in slot order.
 
     ``anchor`` (B, 3) f32 world positions (the current robot pose) anchor
     the unwrap of the wrapped voxel keys: positions are exact for voxels
     within half the wrap range of the anchor (+-1024 cells in x/y, +-128 in
-    z), which the sliding local map under its eviction radius always is."""
+    z), which the sliding local map under its eviction radius always is.
+    Without one the anchor is derived from the live keys
+    (:func:`derive_anchor_vox`), as for a map read back from a file."""
     B, V, K = m.data.shape[0], m.num_slots, m.K
     vs = m.voxel_size.view(B, 1, 1)
-    avox = voxel_coords(anchor.to(torch.float32)[:, None, :], vs)  # (B, 1, 3)
+    if anchor is None:
+        avox = derive_anchor_vox(m)[:, None, :]
+    else:
+        avox = voxel_coords(anchor.to(torch.float32)[:, None, :], vs)  # (B, 1, 3)
     win = m.windows()
     coords = unpack_key_near(win[..., 0], avox)  # (B, V, 3)
     pts = unpack_points(win[..., 2 : 2 + K], coords[:, :, None, :], vs[..., None])  # (B, V, K, 3)

@@ -19,9 +19,12 @@ A port map carries a leading fleet dimension; the file holds one instance
 (B = 1), without it.  The JAX package's loader reads an occupancy layer's
 fields from such a file but not its match index (its ``save_metric_map``
 cannot write one: ROADMAP C9); an occupancy layer without ``match/`` arrays
-loads here with the index rebuilt from its occupied voxels.  The MRPT
-``.simplemap``/``.mm`` import and export wait for ROADMAP queue A, 'Host
-surface'.
+loads here with the index rebuilt from its occupied voxels.
+
+The MRPT ``.simplemap``/``.mm`` export and import (``:158-251`` of the JAX
+module) write the same bytes through the port's copy of ``mrpt_io``; the
+metric-map export takes instance 0 of a one-instance map and copies its
+point view to the host once.
 """
 
 from __future__ import annotations
@@ -167,3 +170,105 @@ def load_simplemap(path: Union[str, Path]) -> List:
             )
         )
     return out
+
+
+# ---------------------------------------------------------------------------
+# MRPT-binary interop (reference-toolchain consumable; utils/mrpt_io.py)
+# ---------------------------------------------------------------------------
+
+
+def export_simplemap_mrpt(path: Union[str, Path], keyframes: List) -> None:
+    """Write the keyframe list as an MRPT ``.simplemap`` (gzip CArchive),
+    the container the reference ecosystem's sm2mm / mm-viewer / loop-closure
+    tools consume (reference module/src/LidarOdometry.cpp:1865-1904)."""
+    from mola_lidar_odometry_tpu_torch.utils import mrpt_io as M
+
+    entries = []
+    for kf in keyframes:
+        q = np.asarray(kf.quat_xyzw, np.float64)
+        pose = M.MrptPose3D(np.asarray(kf.t, np.float64), np.array([q[3], q[0], q[1], q[2]]))  # xyzw -> wxyz
+        obs = []
+        scan = kf.scan_xyz
+        if scan is None and kf.scan_path and Path(kf.scan_path).exists():
+            scan = np.fromfile(kf.scan_path, np.float32).reshape(-1, 3)
+        if scan is not None:
+            obs.append(
+                M.MrptObservation(
+                    classname="CObservationPointCloud",
+                    sensor_label="lidar",
+                    stamp=float(kf.stamp),
+                    sensor_pose=M.MrptPose3D(np.zeros(3), np.array([1.0, 0, 0, 0])),
+                    points=np.asarray(scan, np.float32),
+                )
+            )
+        entries.append(
+            M.MrptSimpleMapEntry(
+                pose=pose, cov=np.zeros((6, 6)), observations=obs, twist=np.asarray(kf.twist, np.float64)
+            )
+        )
+    M.save_simplemap_mrpt(path, entries)
+
+
+def import_simplemap_mrpt(path: Union[str, Path]) -> List:
+    """Read an MRPT ``.simplemap`` back into SimpleMapKeyframe objects."""
+    from mola_lidar_odometry_tpu_torch.models.odometry import SimpleMapKeyframe
+    from mola_lidar_odometry_tpu_torch.utils import mrpt_io as M
+
+    out = []
+    for e in M.load_simplemap_mrpt(path):
+        q = e.pose.quat_wxyz
+        scan = None
+        stamp = 0.0
+        for o in e.observations:
+            stamp = o.stamp or stamp
+            if o.points is not None:
+                scan = o.points
+        out.append(
+            SimpleMapKeyframe(
+                stamp=stamp,
+                t=np.asarray(e.pose.t),
+                quat_xyzw=np.array([q[1], q[2], q[3], q[0]]),
+                twist=np.asarray(e.twist if e.twist is not None else np.zeros(6)),
+                scan_xyz=scan,
+            )
+        )
+    return out
+
+
+def metric_map_points(maps, capacity: int = 1 << 20, anchor=None) -> Dict[str, np.ndarray]:
+    """Each layer of a one-instance local map flattened to its live points
+    (voxel contents / NDT means / occupied centers), as ``{layer: (N, 3)
+    f32}`` on the host: instance 0's point views, copied in one transfer.
+
+    ``anchor`` (3,) world position (e.g. the robot pose at save time, an
+    array or a tensor) pins the wrapped-voxel-key unwrap of point maps;
+    without it the anchor is derived from each map's own live keys."""
+    from mola_lidar_odometry_tpu_torch.ops import maps as maps_ops
+
+    if not isinstance(maps, dict):
+        maps = {"localmap": maps}
+    views = []
+    for m in maps.values():
+        a = None
+        if anchor is not None:
+            a = torch.as_tensor(anchor, dtype=torch.float32, device=m.voxel_size.device).view(1, 3)
+        pc = maps_ops.as_pointcloud(m, capacity, anchor=a)
+        views.append(torch.cat([pc.xyz[0], pc.valid[0, :, None].to(torch.float32)], dim=-1))
+    host = torch.stack(views).cpu().numpy() if views else np.zeros((0, capacity, 4), np.float32)
+    return {name: v[v[:, 3] > 0, :3].astype(np.float32) for name, v in zip(maps, host)}
+
+
+def export_metric_map_mrpt(path: Union[str, Path], maps, capacity: int = 1 << 20, anchor=None) -> None:
+    """Write the local map as an mp2p_icp ``.mm`` (gzip CArchive), each
+    layer flattened to its point view (:func:`metric_map_points`)."""
+    from mola_lidar_odometry_tpu_torch.utils import mrpt_io as M
+
+    layers = {name: (xyz, None) for name, xyz in metric_map_points(maps, capacity, anchor).items()}
+    M.save_metric_map_mrpt(path, layers)
+
+
+def import_metric_map_mrpt(path: Union[str, Path]):
+    """Read an mp2p_icp ``.mm`` into {layer: (N,3) points} arrays."""
+    from mola_lidar_odometry_tpu_torch.utils import mrpt_io as M
+
+    return {k: pts for k, (pts, _) in M.load_metric_map_mrpt(path).items()}

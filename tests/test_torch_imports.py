@@ -29,7 +29,9 @@ def test_every_port_module_is_listed():
         "ops.se3", "ops.filters", "ops.voxel_hash", "ops.pallas_capture", "ops.pallas_icp",
         "ops.pallas_match", "ops.solver", "ops.maps", "ops.icp", "models.step", "parallel.batch", "utils.carry_io", "utils.sim",
         "models.odometry", "utils.runtime", "utils.capacity", "utils.exact_filters", "utils.serialization",
-        "utils.profiler", "ops.ndt", "ops.occupancy",
+        "utils.profiler", "ops.ndt", "ops.occupancy", "utils.mrpt_io", "utils.native", "utils.rosbag2",
+        "utils.mcap", "utils.icp_log", "utils.viz", "utils.live_viz", "apps.datasets", "apps.cli", "apps.convert",
+        "apps.launcher", "apps.icplog_viewer", "apps.ros2_bridge",
     ):
         assert f"{port.__name__}.{expected}" in mods
 

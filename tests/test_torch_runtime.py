@@ -1,14 +1,12 @@
-"""The port's module runtime (worker pool, dispatch, backpressure) and the
-auxiliary observation handlers of its ``LidarOdometry`` (GNSS/IMU/wheel
-odometry, relocalize), mirroring tests/test_runtime.py case for case on
-mola_lidar_odometry_tpu_torch (``device="cpu"``).  The ICP debug logs, whose
-replay is not ported, raise."""
+"""The port's module runtime (worker pool, dispatch, backpressure),
+mirroring the first half of tests/test_runtime.py case for case on
+mola_lidar_odometry_tpu_torch; the auxiliary handlers and the ICP debug
+logs of a real ``LidarOdometry`` are in ``test_torch_runtime_host.py``."""
 
 import threading
 import time
 
 import numpy as np
-import pytest
 
 from mola_lidar_odometry_tpu_torch.utils.runtime import (
     AsyncLidarOdometry,
@@ -152,115 +150,6 @@ class TestDispatch:
         assert len(lo.calls) == 1
         assert lo.calls[0][2] == 20  # merged point count
         rt.shutdown()
-
-
-@pytest.fixture(scope="module")
-def tiny_lo():
-    import os
-
-    from mola_lidar_odometry_tpu_torch.models.odometry import LidarOdometry
-
-    path = os.path.join(os.path.dirname(__file__), "..", "pipelines", "lidar3d-default.yaml")
-    return LidarOdometry.from_yaml_file(
-        path,
-        device="cpu",
-        raw_capacity=1 << 10,
-        map_slots=1 << 12,
-        layer_capacities={"raw": 1 << 10, "decimated_for_map_raw": 512,
-                          "decimated_for_icp_skewed": 512, "decimated_for_icp": 512,
-                          "decimated_for_map": 512},
-    )
-
-
-class TestAuxHandlers:
-    def test_wheel_odometry_feeds_navstate(self, tiny_lo):
-        lo = tiny_lo
-        lo.reset()
-        T0 = np.eye(4)
-        lo.on_wheel_odometry(0.0, T0)
-        T1 = np.eye(4)
-        T1[:3, 3] = [0.5, 0.0, 0.0]
-        lo.on_wheel_odometry(0.1, T1)
-        T2 = np.eye(4)
-        T2[:3, 3] = [1.0, 0.0, 0.0]
-        lo.on_wheel_odometry(0.2, T2)
-        # odometry is velocity evidence ONLY: the navstate window advanced
-        # but the pose estimate did not move (reference feeds fuse_odometry,
-        # never writes the pose — LidarOdometry.cpp:1357-1373)
-        assert abs(float(lo.carry.pose_t[0, 0])) < 1e-6
-        assert int(lo.carry.nav.head[0]) >= 2
-        # ...and the fused window carries the odometric velocity
-        import torch
-
-        from mola_lidar_odometry_tpu_torch.models import navstate as ns
-
-        est = ns.estimate(lo.carry.nav, lo.spec.navstate, torch.tensor([0.25]))
-        assert bool(est.valid[0])
-        assert abs(float(est.twist[0, 0]) - 5.0) < 1.0  # ~0.5 m / 0.1 s
-
-    def test_relocalize_near_pose(self, tiny_lo):
-        lo = tiny_lo
-        lo.reset()
-        R = np.eye(3)
-        t = np.asarray([10.0, -3.0, 1.0])
-        lo.relocalize_near_pose_pdf(R, t)
-        np.testing.assert_allclose(lo.carry.pose_t[0].numpy(), t, atol=1e-6)
-
-    def test_relocalize_from_gnss(self, tiny_lo):
-        lo = tiny_lo
-        lo.reset()
-        assert not lo.relocalize_from_gnss()  # nothing buffered
-        lo.on_gnss(1.0, {"enu": [5.0, 6.0, 0.0]})
-        assert lo.relocalize_from_gnss()
-        np.testing.assert_allclose(lo.carry.pose_t[0].numpy(), [5.0, 6.0, 0.0])
-
-    def test_imu_buffered(self, tiny_lo):
-        lo = tiny_lo
-        lo.reset()
-        lo.on_imu(0.0, {"wx": 0.1})
-        assert len(lo._imu_buffer) == 1
-
-
-def test_icp_debug_logs(tmp_path, monkeypatch, tiny_lo):
-    """MP2P_ICP_GENERATE_DEBUG_FILES=1 needs the ICP-log replay, which is not
-    ported: the port raises instead of ignoring it."""
-    from mola_lidar_odometry_tpu_torch.models.odometry import LidarOdometry
-
-    monkeypatch.setenv("MP2P_ICP_GENERATE_DEBUG_FILES", "1")
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        LidarOdometry(tiny_lo.spec, device="cpu")
-
-
-def test_publisher_callbacks(tiny_lo):
-    """advertiseUpdatedLocalization / advertiseUpdatedMap counterparts."""
-    import numpy as np
-
-    from mola_lidar_odometry_tpu_torch.utils import sim
-
-    lo = tiny_lo
-    lo.reset()
-    loc_updates, map_updates = [], []
-    lo.subscribe_localization_updates(loc_updates.append)
-    lo.subscribe_map_updates(map_updates.append)
-    lo.publish_map_updates_every_n = 1
-    traj, scans = sim.simulate_sequence(3, n_rings=8, n_azimuth=128)
-    for k, (xyz, times, rings, valid) in enumerate(scans):
-        lo.on_lidar_scan(xyz[valid], traj.stamps[k], times=times[valid])
-    assert len(loc_updates) == 3
-    assert "t" in loc_updates[0] and loc_updates[0]["t"].shape == (3,)
-    assert len(map_updates) >= 1
-    assert map_updates[0].ndim == 2 and map_updates[0].shape[1] == 3
-
-
-def test_reset_clears_fatal_latch(tiny_lo):
-    lo = tiny_lo
-    lo.reset()
-    lo._fatal_error = True
-    assert lo.on_lidar_scan(np.zeros((10, 3), np.float32), 0.0) is None  # dead
-    lo.reset()
-    out = lo.on_lidar_scan(np.random.default_rng(0).uniform(-10, 10, (500, 3)).astype(np.float32), 0.0)
-    assert out is not None and bool(out.processed)
 
 
 def test_queue_overflow_drop():

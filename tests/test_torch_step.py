@@ -122,8 +122,8 @@ def test_carry_io_round_trips_and_tracks_jax(runs):
 def test_spec_rejects_host_only_options(env, tmp_path, monkeypatch):
     """The reference's host-side options take effect through the port's
     ``LidarOdometry`` and ``AsyncLidarOdometry``, as in the JAX package; the
-    ICP debug logs, whose replay is not ported, raise instead of being
-    ignored."""
+    ICP debug logs are written (frame 0 of every 10, the default
+    decimation)."""
     from mola_lidar_odometry_tpu_torch.models.odometry import LidarOdometry
     from mola_lidar_odometry_tpu_torch.utils.runtime import AsyncLidarOdometry, Observation
 
@@ -136,8 +136,9 @@ def test_spec_rejects_host_only_options(env, tmp_path, monkeypatch):
 
     if "MP2P_ICP_GENERATE_DEBUG_FILES" in env:
         monkeypatch.setenv("MP2P_ICP_GENERATE_DEBUG_FILES", "1")
-        with pytest.raises(NotImplementedError, match="replay_align_with_trace"):
-            LidarOdometry.from_yaml_file(PIPE, env={}, device="cpu", **SIZING)
+        lo = LidarOdometry.from_yaml_file(PIPE, env={}, device="cpu", **SIZING)
+        assert all(bool(feed(lo, k).processed) for k in range(3))
+        assert [p.name for p in (tmp_path / "icp-logs").iterdir()] == ["icp-run-000000.icplog.npz"]
         return
     if "MOLA_LOAD_MM" in env or "MOLA_LOAD_SM" in env:  # a previous session's outputs
         prev = LidarOdometry.from_yaml_file(PIPE, env={"MOLA_GENERATE_SIMPLEMAP": "true"}, device="cpu", **SIZING)
