@@ -32,7 +32,11 @@ Phases, one line of numbers each:
                and 6656 ICP points, C=54 candidates from a 27-probe per-voxel
                capture of K=20 and K=10 maps filled by the port's insert, some
                queries with no candidate), and at C=16 with an N that is no
-               multiple of 32: must match bit for bit.  Times each;
+               multiple of 32: must match bit for bit.  Times each.  Then
+               B1 and B2 bit for bit at the windows past 32 points the
+               fused path admits (K = 30 at stride 32, a full window; K = 64
+               and 126 at stride 128), on a map filled until the probed
+               voxels hold K points, each time beside its bound;
   4. main    — steps the B=8 fleet of the lidar3d-default pipeline over the
                first 8 scans of the bench's simulated KITTI-like sequence
                (64 x 2048 rays) on the kernels, with the bench's round-5
@@ -136,8 +140,32 @@ Phases, one line of numbers each:
                off and on, the replay's ms per logged frame and the
                launcher's ms per scan.
 
+ 11. complete — lidar3d-default at B=8 over the 8 bench scans at the sizes
+               the port derives (equal to the JAX package's,
+               COMPLETE_SIZING) in the configurations of COMPLETE: 64 points
+               per voxel (MOLA_LOCALMAP_MAX_POINTS_PER_VOXEL=64, a 128-lane
+               window on the fused path, B1-B3), 200 points per voxel with
+               min_distance_between_points 0.2 (a copy of the YAML in a
+               temporary directory: a 256-lane window and the dedup on the
+               generic loop, B4), and ROADMAP C6's paths on the generic
+               loop: the no-motion-model ICP block (Horn, then
+               Gauss-Newton), Anderson acceleration of depth 3 and a
+               one-to-one matcher.  Each is held to the JAX package's CPU
+               figures (K = 64 and 200 as phases 7-8 are, C6's paths to the
+               spreads alone; collision drops to its share),
+               its recorded kernel calls against their twins, its host
+               syncs counted by call site.  Then the port's float64 oracle
+               on the host beside the port's lidar3d-default at B=1: the
+               three figures of tests/test_oracle_parity.py against the JAX
+               engine's against the JAX oracle (ORACLE_FIGURES, with
+               ORACLE_MARGIN) and the oracle's seconds per scan.  Last the
+               fleet split (parallel/batch.py::ShardedFleet): B=8 over 4
+               scans in two worker processes sharing the card (every
+               visible card when there are more), equal to the one-process
+               fleet bit for bit, both wall times printed.
+
 Then one JSON line describing every kernel (launches summed over phases
-4-10), the card's name and power limit, and last the JSON result line.  Any
+4-11), the card's name and power limit, and last the JSON result line.  Any
 failure raises and exits non-zero.  It imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -146,6 +174,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -228,7 +257,41 @@ JAX_FIGURES = {
     "cli derived": dict(iterations=[0, 6, 6, 23, 24, 23, 24, 26], final_pose_gt_error=0.18492481112480164,
                         quality=[1.0, 1.0, 0.9990389347076416, 0.9952448606491089, 0.9923481345176697,
                                  0.97398841381073, 0.9971536993980408, 0.9862232804298401]),
+    # phase 11: lidar3d-default at the configurations of COMPLETE, one
+    # instance at the sizes the JAX package derives (COMPLETE_SIZING)
+    # (JAX_PLATFORMS=cpu PYTHONPATH=. python tests/phase11_jax_figures.py)
+    "k64": dict(iterations=[0, 6, 7, 23, 23, 23, 25, 24], final_pose_gt_error=0.1775668774069904,
+                  quality=[1.0, 0.9995210766792297, 0.9985584020614624, 0.9947693943977356, 0.991391658782959, 0.9720616340637207, 0.9957305788993835, 0.9857482314109802]),
+    "k200 dedup": dict(iterations=[0, 5, 4, 5, 13, 34, 8, 24], final_pose_gt_error=0.15126318117434384,
+                  quality=[1.0, 0.9995210766792297, 0.9985584020614624, 0.9947693943977356, 0.991391658782959, 0.9720616340637207, 0.9957305788993835, 0.9852731823921204]),
+    "no motion model": dict(iterations=[0, 8, 9, 5, 12, 24, 45, 38], final_pose_gt_error=0.020691194571786097,
+                  quality=[1.0, 1.0, 0.9980778694152832, 0.9952448606491089, 0.991391658782959, 0.9749518036842346, 0.9677419066429138, 0.9824228286743164]),
+    "anderson": dict(iterations=[0, 8, 7, 23, 7, 27, 5, 26], final_pose_gt_error=0.1994452292181606,
+                  quality=[1.0, 1.0, 0.9990389347076416, 0.9952448606491089, 0.9923481345176697, 0.9735067486763, 0.9971536993980408, 0.9862232804298401]),
+    "one-to-one": dict(iterations=[0, 7, 6, 24, 6, 34, 10, 23], final_pose_gt_error=0.20787465717845793,
+                  quality=[1.0, 0.9022988677024841, 0.9481018781661987, 0.9343794584274292, 0.9301769733428955, 0.8901734352111816, 0.919829249382019, 0.924465537071228]),
 }
+# Every configuration of COMPLETE sizes as lidar3d-default does: the JAX
+# package's utils/capacity.py derives SIZING for each (the command above
+# prints them), and phase 11 holds the port's derivation to it.
+COMPLETE_SIZING = {tag: SIZING for tag in ("k64", "k200 dedup", "no motion model", "anderson", "one-to-one")}
+# Their collision drops against the points offered to the map over the 8
+# scans (the same command): a 128- or 256-lane window makes each bucket a
+# single way, so at the derived 65536 slots the deep maps drop ~1.1-1.2% of
+# their points in both packages.  Phase 11 holds a path that drops to its
+# share plus DROP_SPREAD, and a path that drops nothing in the JAX package
+# to the other paths' 0.1%.
+COMPLETE_DROPS = {"k64": (868, 73897), "k200 dedup": (832, 73899), "no motion model": (0, 73893),
+                  "anderson": (0, 73899), "one-to-one": (0, 73898)}
+DROP_SPREAD = 0.002
+# Phase 11 (c): the JAX package's LidarOdometry (auto-sized, the TPU
+# algorithm) beside its float64 oracle over the 8 bench scans, the three
+# figures of tests/test_oracle_parity.py (the same command, tag "oracle";
+# the oracle took 0.39-1.32 s a scan on the CPU it ran on).
+ORACLE_FIGURES = dict(
+    worst_pose_log_norm=0.02965892840738314, ate_share_of_path=0.03054375007026678,
+    oracle_gt_error=[0.0, 0.0030324107319452624, 0.015796588889512155, 0.05022358184897915, 0.11041813286628593, 0.16436470475297854, 0.17539266116058985, 0.20147581275230272],
+)
 # Phase 9 (and phase 6's lidar2d): the 2D scans of the JAX package's
 # test_lidar2d_family_parity (tests/test_oracle_parity.py) at its explicit
 # sizes.  Its utils/capacity.py derives 16384 slots and 1024-point layers
@@ -270,6 +333,69 @@ QUALITY_SPREAD = 0.003
 GT_SPREAD = 0.01
 
 
+# Phase 11: lidar3d-default at the configurations that ran on the card for
+# the first time in it, each at the sizes the port derives from the first
+# scan (equal to the JAX package's, checked): 64 points per voxel (a
+# 128-lane window on the fused path, B1-B3), 200 points per voxel with
+# min_distance_between_points 0.2 (a 256-lane window with the dedup, the
+# generic loop on B4), and ROADMAP C6's paths, all on the generic loop: the
+# no-motion-model ICP block (Horn, then Gauss-Newton) for every frame,
+# Anderson acceleration of depth 3, and a one-to-one matcher.
+COMPLETE = ("k64", "k200 dedup", "no motion model", "anderson", "one-to-one")
+COMPLETE_ANDERSON = {"anderson": 3}  # the JAX package's MOLA_TPU_ICP_ANDERSON
+
+
+def complete_cfg(tag: str, tmp: str, load_yaml_file) -> dict:
+    """Phase 11's configuration ``tag`` as a loaded YAML tree, read with
+    ``load_yaml_file`` (either package's): a copy of the pipeline written
+    into ``tmp`` where a key changes (the repo's pipelines stay as they
+    are), the environment where the pipeline reads one, and the ICP block
+    edited in the tree for ROADMAP C6's paths."""
+    default = os.path.join(HERE, "pipelines", "lidar3d-default.yaml")
+    if tag == "k64":
+        return load_yaml_file(default, env={"MOLA_LOCALMAP_MAX_POINTS_PER_VOXEL": "64"})
+    if tag == "k200 dedup":
+        with open(default) as f:
+            text = f.read()
+        for old, new in (("${MOLA_LOCALMAP_MAX_POINTS_PER_VOXEL|20}", "200"),
+                         ("min_distance_between_points: 0\n", "min_distance_between_points: 0.2\n")):
+            if text.count(old) != 1:
+                raise AssertionError(f"complete_cfg: {old!r} is not once in lidar3d-default.yaml")
+            text = text.replace(old, new)
+        path = os.path.join(tmp, "lidar3d-default-k200-dedup.yaml")
+        with open(path, "w") as f:
+            f.write(text)
+        return load_yaml_file(path, env={})
+    cfg = load_yaml_file(default, env={})
+    if tag == "no motion model":
+        cfg["icp_settings_with_vel"] = load_yaml_file(
+            os.path.join(HERE, "pipelines", "extras", "icp-pipeline_no_motion_model.yaml"), env={})
+    elif tag == "one-to-one":
+        cfg["icp_settings_with_vel"]["matchers"][0]["params"]["allowMatchAlreadyMatchedGlobalPoints"] = False
+    elif tag != "anderson":
+        raise ValueError(tag)
+    return cfg
+
+
+def oracle_figures(traj, engine, oracle, relative, se3_log) -> dict:
+    """The three figures of tests/test_oracle_parity.py (:71-101) for an
+    engine's poses against an oracle's, ``(R, t)`` pairs per frame, with
+    that package's float64 ``relative`` and ``se3_log``: the worst per-pose
+    SE(3) log-norm between them, the engine-to-oracle ATE-RMSE as a share
+    of the path, and the oracle's gauge-aligned GT error at each frame."""
+    worst = max(float(np.linalg.norm(se3_log(*relative(np.asarray(Ro, np.float64), np.asarray(to, np.float64),
+                                                      np.asarray(Re, np.float64), np.asarray(te, np.float64)))))
+                for (Re, te), (Ro, to) in zip(engine, oracle))
+    d = np.stack([np.asarray(t, np.float64) for _, t in engine]) - np.stack([t for _, t in oracle])
+    ate = float(np.sqrt(np.mean(np.sum(d ** 2, axis=1))))
+    path = float(np.sum(np.linalg.norm(np.diff(traj.t[:len(engine)], axis=0), axis=1)))
+    R0, t0 = traj.R[0], traj.t[0]
+    gt = [float(np.linalg.norm(se3_log(*relative(R0.T @ traj.R[k], R0.T @ (traj.t[k] - t0), Ro, to))))
+          for k, (Ro, to) in enumerate(oracle)]
+    return dict(worst_pose_log_norm=worst, ate_rmse_m=ate, path_m=path, ate_share_of_path=ate / path,
+                oracle_gt_error=gt)
+
+
 def reference_guards(tag: str, n_scans: int = N_SCANS) -> dict:
     """Guards of a path over its first ``n_scans`` scans: the mean quality
     (scans 1 on) within QUALITY_SPREAD of the JAX package's over the same
@@ -285,6 +411,17 @@ def reference_guards(tag: str, n_scans: int = N_SCANS) -> dict:
         gt = ref["final_pose_gt_error"]
         g.update(ref_gt_error=gt, max_gt_error=0.20 if gt < 0.20 else gt + GT_SPREAD)
     return g
+
+
+def spread_guards(tag: str) -> dict:
+    """Guards of a path held to the JAX package's CPU figures alone (phase
+    11's ROADMAP C6 paths): the mean quality (scans 1 on) within
+    QUALITY_SPREAD and the final-pose GT error within GT_SPREAD of the JAX
+    package's over the same scans and sizes, without the bench's 0.9 /
+    0.20."""
+    ref = JAX_FIGURES[tag]
+    q, gt = float(np.mean(ref["quality"][1:])), ref["final_pose_gt_error"]
+    return dict(ref_quality=q, min_mean_quality=q - QUALITY_SPREAD, ref_gt_error=gt, max_gt_error=gt + GT_SPREAD)
 
 
 def guard_failures(mean_quality: float, gt_err: float, guards: dict) -> list:
@@ -426,10 +563,12 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 
-def kernel_inputs(dev, seed=0, n_query=3072, slots=1 << 16, K=20):
+def kernel_inputs(dev, seed=0, n_query=3072, slots=1 << 16, K=20, fill=0):
     """A bench-sized fleet map (``slots`` slots, ``K`` points per voxel)
     filled by the port's insert, and per-instance ICP points near the mapped
-    surfaces."""
+    surfaces.  With ``fill`` the last frame's points are inserted ``fill``
+    times more, each time moved by up to 5 cm, without a budget: the voxels
+    the ICP points probe then hold up to K points."""
     import torch
 
     from mola_lidar_odometry_tpu_torch.ops import voxel_hash as vh
@@ -445,6 +584,11 @@ def kernel_inputs(dev, seed=0, n_query=3072, slots=1 << 16, K=20):
         xyz[:, 5000:8000, 1] = np.round(xyz[:, 5000:8000, 1] / 10) * 10  # walls
         surf.append(xyz)
         m, _ = vh.insert_stats(m, PointCloud.from_xyz(torch.from_numpy(xyz).to(dev)), budget=4096)
+    last = torch.from_numpy(surf[-1]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for _ in range(fill):
+        moved = last + 0.05 * (2 * torch.rand(last.shape, generator=gen, device=dev) - 1)
+        m, _ = vh.insert_stats(m, PointCloud.from_xyz(moved))
     pick = rng.integers(0, 11776, (BATCH, n_query))
     world = np.take_along_axis(surf[-1], pick[..., None], axis=1)
     local = (world + rng.normal(0, 0.05, world.shape)).astype(np.float32)
@@ -719,6 +863,73 @@ def phase_kernels(dev):
     return recs
 
 
+WINDOW_KS = (30, 64, 126)  # beside phase 3's K = 20: a full 32-lane window, a 128-lane one, a full one
+
+
+def phase_kernel_windows(dev):
+    """B1 and B2 against their twins on the card, bit for bit, at the
+    windows past 32 points the fused path admits (``2 + K <= stride <=
+    128``): K = 30 (stride 32, full), 64 and 126 (stride 128, the last
+    full), on a ``kernel_inputs`` map filled until the probed voxels hold K
+    points.  B1 captures at an entry pose off the answer, B2 reselects at
+    the answer from B1's rows (the settled pose of an align).  Each time is
+    printed beside its bound: bytes as in phase 3 (the probed rows once, the
+    rows written for B2, the planes; B2 the sectors its selection needs)
+    and operations over the live point words these inputs hold."""
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.ops import pallas_capture as pc, se3
+    from mola_lidar_odometry_tpu_torch.ops.filters import voxel_coords, voxel_hash
+    from mola_lidar_odometry_tpu_torch.ops.voxel_hash import neighbor_coords
+
+    card = torch.cuda.get_device_name(0)
+    for K in WINDOW_KS:
+        m, local, valid = kernel_inputs(dev, seed=K, K=K, fill=K + 2)
+        B, N = valid.shape
+        P, npad = 8, 3072
+        xi = torch.tensor([[0.06 + 0.01 * b, -0.04, 0.02, 0.002, -0.003, 0.006] for b in range(B)], device=dev)
+        q0 = se3.transform(se3.se3_exp(xi), local).contiguous()
+        args1, kw1 = (m.data, m.voxel_size, m.epoch, q0, P), dict(K=m.K, stride=m.stride, valid=valid,
+                                                                 return_rows=True)
+        ref1 = pc.capture_planar_plain(*args1, **kw1)
+        got1 = pc.capture_planar(*args1, **kw1)
+        args2, kw2 = (ref1[4], m.voxel_size, m.epoch, local.contiguous(), q0, P), dict(K=m.K, stride=m.stride,
+                                                                                       valid=valid)
+        ref2 = pc.capture_planar_reselect_plain(*args2, **kw2)
+        got2 = pc.capture_planar_reselect(*args2, **kw2)
+        torch.cuda.synchronize()
+        for name, got, ref in (("B1", got1, ref1), ("B2", got2, ref2)):
+            for i, (g, r) in enumerate(zip(got, ref)):
+                if not torch.equal(g, r):
+                    raise AssertionError(f"{name} at K={K} output {i} differs from its plain twin in "
+                                         f"{int((g != r).sum())} elements")
+        sectors, words = pc.reselect_sectors(ref1[4], m.voxel_size, m.epoch, q0, P, m.K, m.stride)
+        sel = ref1[4].view(B, P, npad, 128 // m.stride, m.stride)[..., 1] & 0xFFFF  # each way's count
+        deep = int((sel > 32).any(dim=-1).sum())
+        ms1 = cuda_graph_ms(pc.capture_launcher(*args1, **kw1)[0], 20)
+        ms2 = cuda_graph_ms(pc.reselect_launcher(*args2, **kw2)[0], 20)
+        pms1 = cuda_ms(lambda: pc.capture_planar_plain(*args1, **kw1), 2)
+        pms2 = cuda_ms(lambda: pc.capture_planar_reselect_plain(*args2, **kw2), 2)
+        vs = m.voxel_size.view(B, 1, 1)
+        qp = torch.nn.functional.pad(q0, (0, 0, 0, npad - N))
+        NB = m.data.shape[1]
+        buckets = voxel_hash(neighbor_coords(qp, voxel_coords(qp, vs), vs, P), NB)
+        vm = torch.nn.functional.pad(valid, (0, npad - N))
+        spread = (torch.arange(npad, device=dev)[:, None] * P + torch.arange(P, device=dev)) % NB
+        rows_read = torch.where(vm[..., None], buckets.long(), spread)
+        uniq_rows = int(torch.unique(rows_read + torch.arange(B, device=dev).view(B, 1, 1) * NB).numel())
+        q_bytes, planes, rows = B * N * 3 * 4 + B * N, 4 * B * 2 * P * npad * 4, B * P * npad * 512
+        flops = (words + 2 * B * P * npad) * 20  # ~20 flops per live word dequantized and ranked, + the picks
+        b1 = bound(uniq_rows * 512 + q_bytes + planes + rows, flops)
+        b2 = bound(sectors * 32 + 2 * q_bytes + planes, flops)
+        log(f"kernels: K={K} (stride {m.stride}): B1 and B2 bit-exact vs plain on {B}x{P}x{npad} probes, "
+            f"{deep} of them on a way holding more than 32 points, {words} live point words; "
+            f"B1 {ms1:.4f} ms (plain {pms1:.3f} ms, bound {b1[0]:.4f} ms by {b1[1]}), B2 {ms2:.4f} ms (plain "
+            f"{pms2:.3f} ms, bound {b2[0]:.4f} ms by {b2[1]}, {sectors} sectors) on {card}")
+        if K > 32 and deep == 0:
+            raise AssertionError(f"K={K}: no probed way holds more than 32 points; the inputs miss the deep windows")
+
+
 def phase_kernel_match(dev):
     """Hold kernel B4 (``nn_select``) against its plain twin on the card at
     the dual-map path's shapes, as one align of that path calls it: a
@@ -844,16 +1055,19 @@ def profile_step(fstep, carry, scan):
     return carry, out
 
 
-def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, count_syncs=False, params=None):
-    """Step the B=8 fleet of ``pipeline`` through ``scans`` on the kernels
+def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, count_syncs=False, params=None,
+              spec_edit=None):
+    """Step the B=8 fleet of ``pipeline`` (a path under pipelines/, or a
+    loaded YAML tree) through ``scans`` on the kernels
     with every launch count set to 0 just before and read just after;
     returns (scans/s, launches of this path per kernel name, outputs, the
     last carry).
     With ``count_syncs`` the step before the profiled last one counts the
-    host syncs torch flags and records its kernel calls (and is left out of
-    the rate); after the counts are read, each recorded call is held
-    against its plain twin at this path's own shapes.  ``params`` are
-    set in the pipeline's ``params`` block."""
+    host syncs torch flags (printed by call site) and records its kernel
+    calls (and is left out of the rate); after the counts are read, each
+    recorded call is held against its plain twin at this path's own shapes.
+    ``params`` are set in the pipeline's ``params`` block; ``spec_edit``
+    maps the built spec to the one stepped."""
     import torch
 
     from mola_lidar_odometry_tpu_torch.models import step as step_mod
@@ -862,9 +1076,11 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, 
     from mola_lidar_odometry_tpu_torch.utils.config import load_yaml_file
 
     n_scans = len(scans)
-    cfg = load_yaml_file(os.path.join(HERE, "pipelines", pipeline), env={})
+    cfg = pipeline if isinstance(pipeline, dict) else load_yaml_file(os.path.join(HERE, "pipelines", pipeline), env={})
     cfg["params"].update(params or {})
     spec = spec_from_yaml(cfg, kf_ring_capacity=256, **sizing)
+    if spec_edit is not None:
+        spec = spec_edit(spec)
     fstep = pb.make_fleet_step(spec)
     seq = [pb.pack_scans(spec, [s] * BATCH, [traj.stamps[k]] * BATCH, device=dev) for k, s in enumerate(scans)]
     carry = pb.init_fleet_carry(spec, BATCH, device=dev)
@@ -884,6 +1100,7 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, 
             torch.cuda.synchronize()
         if counted:
             syncs = len(hits)
+            sites = collections.Counter(f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in hits)
         else:
             secs.append(time.time() - t1)
         outs.append(out)
@@ -914,7 +1131,8 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, 
         f"peak device memory {peak_gb:.3f} GB")
     log(f"{tag}: launches " + ", ".join(f"{k}={v} ({v / n_scans:.2f}/step)" for k, v in launches.items()))
     if syncs is not None:
-        log(f"{tag}: host syncs flagged by torch in step {n_scans - 2}: {syncs} (that step is left out of the rate)")
+        log(f"{tag}: host syncs flagged by torch in step {n_scans - 2}: {syncs} (that step is left out of the rate); "
+            "by call site: " + ", ".join(f"{k} x{v}" for k, v in sites.most_common()))
     failures = guard_failures(float(q[1:].mean()), gt_err, guards)
     if not accepted[1:].all():
         failures.append(f"frames not accepted: {np.argwhere(~accepted).tolist()}")
@@ -922,8 +1140,9 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, 
         failures.append(f"{spec.icp_local_layer} saturated ({int(nicp.max())})")
     if not nmap.max() < map_cap:
         failures.append(f"{spec.map_inserts[0].input_layer} saturated ({int(nmap.max())})")
-    if drops > 1e-3 * nmap.sum():  # the drops of every map against one map's points: stricter than per map
-        failures.append(f"collision drops {drops} > 0.1% of {int(nmap.sum())}")
+    share = guards.get("max_drop_share", 1e-3)
+    if drops > share * nmap.sum():  # the drops of every map against one map's points: stricter than per map
+        failures.append(f"collision drops {drops} > {100 * share:.2f}% of {int(nmap.sum())}")
     if sorted(carry.maps) != sorted(map_names):
         failures.append(f"map layers {sorted(carry.maps)} != {sorted(map_names)}")
     failures += [f"{k} never launched on the {tag} path" for k in guards["kernels"] if launches[k] <= 0]
@@ -1683,8 +1902,193 @@ def phase_surface(dev, recs, scans, traj):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: complete — the windows past 32 points and the dedup on the main
+# paths, ROADMAP C6's paths, the float64 oracle, the fleet split
+# ---------------------------------------------------------------------------
+
+COMPLETE_KERNELS = {"k64": MAIN_KERNELS}  # the others run the generic loop on B4
+# How far phase 11 (c)'s figures may read from ORACLE_FIGURES: the port's
+# engine on the card parts from the JAX package's on the CPU by a few
+# millimetres over these scans (phase 4's GT error 0.1847 against 0.1849),
+# so 0.01 on a log-norm and 0.5% of the 0.63 m path (3 mm) on the ATE; the
+# two oracles are the same float64 arithmetic, so their GT errors agree to
+# 1e-6.
+ORACLE_MARGIN = dict(pose=0.01, ate_share=0.005, gt=1e-6)
+FLEET_SPLIT_SCANS = 4
+
+
+def phase_complete(dev, recs, scans, traj):
+    """Phase 11: (a)-(b) lidar3d-default at K = 64 and at K = 200 with the
+    dedup, then ROADMAP C6's paths, each at B = 8 over the 8 bench scans at
+    the sizes the port derives (equal to the JAX package's), held to the JAX
+    package's CPU figures as phases 7-8 are, its recorded kernel calls held
+    against their twins and its host syncs counted by call site; (c) the
+    port's float64 oracle beside the port at B = 1; (d) the fleet split over
+    two worker processes.  Returns each kernel's launches in this phase."""
+    import tempfile
+
+    from mola_lidar_odometry_tpu_torch.models.spec import spec_from_yaml
+    from mola_lidar_odometry_tpu_torch.utils.capacity import derive_capacities
+    from mola_lidar_odometry_tpu_torch.utils.config import load_yaml_file
+
+    t_phase = time.time()
+    launches = collections.Counter()
+    x0, t0, _, v0 = scans[0]
+    max_pts = max(int(v.sum()) for _, _, _, v in scans)
+    for tag in COMPLETE:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = complete_cfg(tag, tmp, load_yaml_file)
+        names = ("raw_capacity", "map_slots", "layer_capacities", "insert_budgets")
+        sizing = dict(zip(names, derive_capacities(spec_from_yaml(cfg), x0[v0], t0[v0], with_budgets=True,
+                                                   known_max_points=max_pts)))
+        if sizing != COMPLETE_SIZING[tag]:
+            raise AssertionError(f"{tag}: the port derives {sizing}, the JAX package {COMPLETE_SIZING[tag]}")
+        depth = COMPLETE_ANDERSON.get(tag, 0)
+
+        def edit(spec, depth=depth):
+            if not depth:
+                return spec
+            return dataclasses.replace(spec, icp_with_vel=dataclasses.replace(spec.icp_with_vel, anderson_m=depth),
+                                       icp_without_vel=dataclasses.replace(spec.icp_without_vel, anderson_m=depth))
+
+        drops, offered = COMPLETE_DROPS[tag]
+        # (a) and (b) as phase 4 is guarded, and within the spreads of the
+        # JAX figures; C6's paths within the spreads (their own GT errors
+        # sit at 0.02-0.21, so the bench's 0.20 is no bound on them)
+        guards = reference_guards(tag) if tag in ("k64", "k200 dedup") else spread_guards(tag)
+        guards["max_drop_share"] = max(1e-3, drops / offered + DROP_SPREAD) if drops else 1e-3
+        kernels = COMPLETE_KERNELS.get(tag, DUALMAP_KERNELS)
+        _, here, _, carry = run_fleet(dev, recs, tag, cfg, sizing, scans, traj, dict(guards, kernels=kernels),
+                                      ("localmap",), count_syncs=True, spec_edit=edit)
+        m = carry.maps["localmap"]
+        icp = edit(spec_from_yaml(cfg)).icp_with_vel
+        log(f"{tag}: map K={m.K} stride {m.stride}, min_distance_between_points "
+            f"{spec_from_yaml(cfg).map_layers[0].min_distance_between_points}; ICP: Horn "
+            f"{icp.horn is not None}, Anderson depth {icp.anderson_m}, one-to-one "
+            f"{not icp.matchers[0].allow_match_already_matched}; sized {json.dumps(sizing)} (= the JAX package's)")
+        print_reference(tag, guards)
+        launches.update(here)
+    launches.update(phase_oracle(dev, recs, scans, traj))
+    phase_fleet_split(dev, scans, traj)
+    log(f"complete: phase 11 took {time.time() - t_phase:.1f} s")
+    return launches
+
+
+def phase_oracle(dev, recs, scans, traj):
+    """Phase 11 (c): the port's float64 oracle on the host beside the port's
+    lidar3d-default at B = 1 (``LidarOdometry``, auto-sized) over the 8
+    bench scans; the three figures of tests/test_oracle_parity.py against
+    the JAX engine's against the JAX oracle (ORACLE_FIGURES): the JAX file's
+    bounds (0.1, 1% of the path, 0.25) where the JAX run meets them, else
+    the JAX figure plus ORACLE_MARGIN; the port within ORACLE_MARGIN of the
+    JAX figures (the two oracles are the same float64 arithmetic, so their
+    GT errors agree to 1e-6)."""
+    from mola_lidar_odometry_tpu_torch.models.spec import spec_from_yaml
+    from mola_lidar_odometry_tpu_torch.oracle import OracleOdometry, relative, se3_log
+    from mola_lidar_odometry_tpu_torch.utils.config import load_yaml_file
+
+    for r in recs:
+        r["wrapper"].launches = 0
+    _, outs, secs, _, _ = run_host(dev, "oracle engine", "lidar3d-default.yaml", scans, traj, MAIN_GUARDS)
+    here = {r["name"]: r["wrapper"].launches for r in recs}
+    oracle = OracleOdometry(spec_from_yaml(load_yaml_file(os.path.join(HERE, "pipelines", "lidar3d-default.yaml"),
+                                                          env={})))
+    ora, osecs = [], []
+    for k, (xyz, times, rings, valid) in enumerate(scans):
+        t1 = time.time()
+        o = oracle.step(xyz[valid].astype(np.float64), times[valid].astype(np.float64), float(traj.stamps[k]))
+        osecs.append(time.time() - t1)
+        ora.append(o)
+    got = oracle_figures(traj, [(o.pose_R, o.pose_t) for o in outs], [(o.R, o.t) for o in ora], relative, se3_log)
+    ref = ORACLE_FIGURES
+    log(f"oracle: worst engine-to-oracle SE(3) log-norm {got['worst_pose_log_norm']:.4f} (JAX engine to JAX oracle "
+        f"{ref['worst_pose_log_norm']:.4f}); engine-to-oracle ATE-RMSE {got['ate_rmse_m']:.4f} m = "
+        f"{100 * got['ate_share_of_path']:.3f}% of the {got['path_m']:.2f} m path (JAX "
+        f"{100 * ref['ate_share_of_path']:.3f}%); oracle GT error per frame "
+        f"{[round(e, 4) for e in got['oracle_gt_error']]} (JAX oracle {[round(e, 4) for e in ref['oracle_gt_error']]}); "
+        f"the port's GT error per frame {[round(gt_error(traj, k, o.pose_R, o.pose_t), 4) for k, o in enumerate(outs)]}")
+    log(f"oracle: {np.mean(osecs):.3f} s per scan on the host ({[round(x, 2) for x in osecs]}), every frame "
+        f"accepted {all(o.accepted for o in ora)}, oracle quality {[round(o.quality, 4) for o in ora]}")
+    failures = []
+    for key, bound_ in (("worst_pose_log_norm", 0.1), ("ate_share_of_path", 0.01)):
+        lim = bound_ if ref[key] < bound_ else ref[key] + ORACLE_MARGIN["ate_share" if "ate" in key else "pose"]
+        if not got[key] < lim:
+            failures.append(f"{key} {got[key]:.5f} >= {lim:.5f}")
+        if not abs(got[key] - ref[key]) <= ORACLE_MARGIN["ate_share" if "ate" in key else "pose"]:
+            failures.append(f"{key} {got[key]:.5f} is more than the margin from the JAX package's {ref[key]:.5f}")
+    worst_gt = max(ref["oracle_gt_error"])
+    lim = 0.25 if worst_gt < 0.25 else worst_gt + ORACLE_MARGIN["pose"]
+    if not max(got["oracle_gt_error"]) < lim:
+        failures.append(f"oracle GT error {max(got['oracle_gt_error']):.4f} >= {lim:.4f}")
+    gap = max(abs(a - b) for a, b in zip(got["oracle_gt_error"], ref["oracle_gt_error"]))
+    if not gap <= ORACLE_MARGIN["gt"]:
+        failures.append(f"the port's oracle GT errors differ from the JAX oracle's by {gap:.3g}")
+    if not all(o.accepted for o in ora):
+        failures.append("the oracle rejected a frame")
+    if failures:
+        raise AssertionError("oracle: " + "; ".join(failures))
+    log(f"oracle: within the gates (0.1 / 1% / 0.25 where the JAX run meets them, else its figure plus "
+        f"{ORACLE_MARGIN}); the two oracles' GT errors differ by {gap:.3g}")
+    return here
+
+
+def phase_fleet_split(dev, scans, traj):
+    """Phase 11 (d): lidar3d-default at B = 8 over 4 bench scans, in one
+    process and split over two worker processes (``ShardedFleet``) that
+    share the card, or over every visible card when there are more: the
+    poses, quality, flags and layer counts gathered back must equal the
+    one-process fleet's bit for bit.  The kernels launched in the workers
+    are counted there, not in this process's records."""
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.models.spec import spec_from_yaml
+    from mola_lidar_odometry_tpu_torch.parallel import batch as pb
+    from mola_lidar_odometry_tpu_torch.utils.config import load_yaml_file
+
+    n_cards = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(n_cards)] if n_cards > 1 else ["cuda:0", "cuda:0"]
+    spec = spec_from_yaml(load_yaml_file(os.path.join(HERE, "pipelines", "lidar3d-default.yaml"), env={}),
+                          kf_ring_capacity=256, **SIZING)
+    sub = scans[:FLEET_SPLIT_SCANS]
+    fstep = pb.make_fleet_step(spec)
+    carry = pb.init_fleet_carry(spec, BATCH, device=dev)
+    ref, one_s = [], []
+    for k, s_ in enumerate(sub):
+        t1 = time.time()
+        carry, out = fstep(carry, pb.pack_scans(spec, [s_] * BATCH, [traj.stamps[k]] * BATCH, device=dev))
+        ref.append(host_fields(out))
+        one_s.append(time.time() - t1)
+    t1 = time.time()
+    with pb.ShardedFleet(spec, BATCH, devices) as fleet:
+        start_s = time.time() - t1
+        got, split_s = [], []
+        for k, s_ in enumerate(sub):
+            t1 = time.time()
+            got.append(fleet.step([s_] * BATCH, [traj.stamps[k]] * BATCH))
+            split_s.append(time.time() - t1)
+    fields = ("pose_R", "pose_t", "quality", "iterations", "processed", "accepted", "kf_local", "kf_simplemap",
+              "n_raw", "n_icp_layer", "n_map_layer", "corrections", "map_collision_drops")
+    for k, (g, r) in enumerate(zip(got, ref)):
+        for f in fields:
+            if not np.array_equal(getattr(g, f), r[f]):
+                raise AssertionError(f"fleet split: {f} at scan {k} differs from the one-process fleet's "
+                                     f"({np.abs(getattr(g, f).astype(np.float64) - r[f]).max()})")
+    log(f"fleet split: B={BATCH} over {len(devices)} worker processes on {sorted(set(devices))}, "
+        f"{BATCH // len(devices)} instances each: poses, quality, flags and layer counts equal the one-process "
+        f"fleet's bit for bit over {len(sub)} scans; wall {split_s[0]:.3f} s for the first step (fresh workers load "
+        f"their kernels) and {sum(split_s[1:]):.3f} s for the other {len(sub) - 1} (workers started in "
+        f"{start_s:.1f} s) against {one_s[0]:.3f} s and {sum(one_s[1:]):.3f} s in this process"
+        + ("; with one card this checks the split and the merge, not the scaling" if n_cards <= 1 else ""))
+
+
+def host_fields(out) -> dict:
+    """A StepOutput's fields on the host as numpy arrays."""
+    return {f: v.cpu().numpy() for f, v in zip(out._fields, out)}
+
+
 def phase_paths(dev, recs):
-    """Phases 4-10 over the bench's simulated sequence (and lidar2d's 2D
+    """Phases 4-11 over the bench's simulated sequence (and lidar2d's 2D
     scans); fills ``launches`` of every record with the sum over them."""
     t0 = time.time()
     scans, traj = bench_scans(N_SCANS)
@@ -1710,8 +2114,9 @@ def phase_paths(dev, recs):
     extra_l = phase_extras(dev, recs, scans, traj)
     l9 = phase_lidar2d_rgbd(dev, recs, scans, traj)
     l10 = phase_surface(dev, recs, scans, traj)
+    l11 = phase_complete(dev, recs, scans, traj)
     for r in recs:
-        r["launches"] = sum(ls[r["name"]] for ls in (main_l, dual_l, host_l, ndt_l, extra_l, l9, l10))
+        r["launches"] = sum(ls.get(r["name"], 0) for ls in (main_l, dual_l, host_l, ndt_l, extra_l, l9, l10, l11))
         del r["wrapper"]
     never = [r["name"] for r in recs if r["launches"] <= 0]
     if never:
@@ -1726,6 +2131,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     recs = phase_kernels("cuda")
+    phase_kernel_windows("cuda")
     recs.append(phase_kernel_match("cuda"))
     phase_paths("cuda", recs)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

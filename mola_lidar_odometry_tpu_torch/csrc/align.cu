@@ -532,6 +532,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) align_kernel(
   }
 }
 
+constexpr int kMaxDevices = 64;
+
 template <int PPT>
 cudaError_t launch(cudaLaunchConfig_t& cfg, int cs, const float* pts, const unsigned char* valid,
                    const float* cx, const float* cy, const float* cz, const float* cm,
@@ -546,9 +548,19 @@ cudaError_t launch(cudaLaunchConfig_t& cfg, int cs, const float* pts, const unsi
     cudaGetLastError();
     return e;
   };
-  static int checked_cs = 0, checked_threads = 0;
-  static size_t checked_smem = ~(size_t)0;
-  if (cs != checked_cs || (int)cfg.blockDim.x != checked_threads || cfg.dynamicSmemBytes != checked_smem) {
+  // Function attributes are the current device's: the check is kept per
+  // device, so that one process may launch on several cards.
+  struct Checked {
+    int cs = 0, threads = 0;
+    size_t smem = ~(size_t)0;
+  };
+  static Checked checked[kMaxDevices];
+  int dev = 0;
+  cudaError_t de = cudaGetDevice(&dev);
+  if (de != cudaSuccess) return refuse(de);
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  Checked& ck = checked[dev];
+  if (cs != ck.cs || (int)cfg.blockDim.x != ck.threads || cfg.dynamicSmemBytes != ck.smem) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return refuse(e);
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cfg.dynamicSmemBytes);
@@ -557,9 +569,9 @@ cudaError_t launch(cudaLaunchConfig_t& cfg, int cs, const float* pts, const unsi
     e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
     if (e != cudaSuccess) return refuse(e);
     if (clusters < 1) return cudaErrorLaunchOutOfResources;  // the cluster cannot be scheduled
-    checked_cs = cs;
-    checked_threads = (int)cfg.blockDim.x;
-    checked_smem = cfg.dynamicSmemBytes;
+    ck.cs = cs;
+    ck.threads = (int)cfg.blockDim.x;
+    ck.smem = cfg.dynamicSmemBytes;
   }
   cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, pts, valid, cx, cy, cz, cm, params, thr2, kc, out,
                                      N, npad, C, maxit, gn_inner, cs, slice, planes_in_smem, min_t,

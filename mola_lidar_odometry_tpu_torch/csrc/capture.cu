@@ -29,8 +29,9 @@
 //   * What bounds it: bytes, but only the bytes its selection needs.  Of the
 //     512-byte row it needs the W way headers and the selected way's live
 //     point words: the W header sectors (32 bytes each: pkey, state and point
-//     words 0-5), plus at most 2 sectors more when K = 20 and stride = 32, so
-//     at most 192 bytes.  Its first design (one warp per query, every lane
+//     words 0-5), plus the further sectors of the selected way that hold a
+//     word k < min(cnt, K) (at most 2 when K = 20 and stride = 32, so at most
+//     192 bytes; at most 15 when K = 126 and stride = 128).  Its first design (one warp per query, every lane
 //     reading 16 bytes of the row, ~40 shuffles and two 5-step butterflies,
 //     lane 0 storing 8 scattered floats) read all of every row and was bound
 //     by instruction issue.  It now reads scattered 32-byte sectors, one per
@@ -38,20 +39,24 @@
 //     time on an H100).
 //   * The header pass issues the W sector loads (two int4 each, read-only
 //     path) together, and the way is chosen from registers.  The point pass
-//     then loads the selected way's further int4 chunks only while they hold
-//     a word k < min(cnt, K); a dead probe reads nothing more.
+//     then streams the selected way's further int4 chunks only while they
+//     hold a word k < min(cnt, K); a dead probe reads nothing more.
 //   * Queries, mask and the 8 output planes are indexed by i across a warp,
 //     so their loads and stores are coalesced.  No shuffles.
 //   * W = 128 / stride is a template parameter (1, 2 or 4 ways: the strides
 //     128, 64 and 32 that VoxelHashMap.create makes), so the headers stay in
 //     registers.
 //
-// select_top2, shared by both kernels: dequantize the selected way's live
-// words, take the top-2 in one serial pass equal to two first-min scans (the
-// lowest k wins ties; without a live word both picks fall on k = 0, whose
-// coordinates are still written), store the four planes.  It holds no
-// per-word distances, so B1 and B2 each take 58-59 registers (89 and 103
-// with two scans over a K-wide distance array).
+// select_top2, shared by both kernels: stream the selected way's live words
+// in int4 chunks, a group of 6 chunks' loads in flight at once (B1 from its
+// staged row in shared memory, B2 from the row in global memory), dequantize
+// each, take the top-2 in one serial pass equal to
+// two first-min scans (the lowest k wins ties; without a live word both picks
+// fall on k = 0, whose coordinates are still written), store the four
+// planes.  It holds neither the way's words nor per-word distances, so one
+// thread's registers do not grow with K: every window with
+// 2 + K <= stride <= 128 (K <= 126, the JAX capture's own bound) runs the
+// same code.
 //
 // Both derive the expected key from floor(q_cap * inv_vs) and select the way
 // whose pkey and epoch match (the last matching way wins, way 0 when none
@@ -141,9 +146,7 @@ __device__ __forceinline__ void bulk_store_wait_read() {
 
 constexpr int kRowStride = 128 + 4;  // staged row: 128 words + 16 bytes of padding
 constexpr int kGatherWarps = 2;      // warps per block, each on its own 32 queries
-constexpr int kMaxK = 32;
-constexpr int kChunks = (kMaxK + 2 + 3) / 4;  // int4 chunks of a way's pkey, state and <= 32 point words
-constexpr int kReselectThreads = 128;          // B2: queries per block
+constexpr int kReselectThreads = 128;  // B2: queries per block
 
 // the probe's expected packed key from q_cap * inv_vs (and the dequantization
 // base e of its voxel)
@@ -173,34 +176,57 @@ __device__ __forceinline__ float dequant(int pw, const float* e, float vs, const
   return d2;
 }
 
-// The top-2 of a probe, shared by B1 and B2.  words[2 + k] is point word k of
-// the selected way (words[2] always loaded); the nk words k < nk are its live
-// candidates.  Each is dequantized against the probe voxel e and ranked by d2
-// to ql in one serial pass that keeps the best and the second best with
+// One chunk c (words 4c..4c+3 of the selected way) through the running
+// top-2: its words k = 4c + j - 2 < nk, dequantized and ranked with strict
+// compares.
+__device__ __forceinline__ void rank_chunk(const int4& x, int c, int nk, const float* e, float vs,
+                                           const float* ql, float& d1, float& d2, int& w1, int& w2) {
+  const int w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = 4 * c + j - 2;
+    if (k >= 0 && k < nk) {
+      float xs[3];
+      const float d = dequant(w[j], e, vs, ql, xs);
+      if (d < d1) { d2 = d1; w2 = w1; d1 = d; w1 = w[j]; }
+      else if (d < d2) { d2 = d; w2 = w[j]; }
+    }
+  }
+}
+
+constexpr int kGroup = 6;  // chunks whose loads are in flight together (K <= 30: one group)
+
+// The top-2 of a probe, shared by B1 and B2.  Chunk c of the selected way
+// holds its words 4c..4c+3 (pkey, state, then point word k at 2 + k): c0 and
+// c1 are given, load(c) reads chunk c >= 2.  The nk words k < nk are its live
+// candidates, streamed in groups of kGroup chunks (a group's loads issued
+// together, then ranked in order) while a chunk holds one; chunks past them
+// are not read.  Each is dequantized against the probe voxel e and ranked by
+// d2 to ql in one serial pass that keeps the best and the second best with
 // strict compares: the same picks as two first-min scans (the lowest k wins
 // ties, the second scan with kBig at the first pick), without holding the K
-// distances.  Chunks past the live words are skipped.  Without a live word
-// both picks fall on k = 0, whose coordinates are still written.  Both picks
-// go to the planes at o1 and o2, their masks times vm.
-__device__ __forceinline__ void select_top2(const int (&words)[4 * kChunks], int nk, const float* e, float vs,
+// distances.  Without a live word both picks fall on k = 0, whose
+// coordinates are still written.  Both picks go to the planes at o1 and o2,
+// their masks times vm.
+template <typename Load>
+__device__ __forceinline__ void select_top2(Load load, int4 c0, int4 c1, int nk, const float* e, float vs,
                                             const float* ql, float vm, float* __restrict__ cx,
                                             float* __restrict__ cy, float* __restrict__ cz,
                                             float* __restrict__ cm, size_t o1, size_t o2) {
   float d1 = kBig, d2 = kBig;
-  int w1 = words[2], w2 = words[2];
+  int w1 = c0.z, w2 = c0.z;
+  const int n_chunks = (2 + nk + 3) / 4;  // the chunks holding a word k < nk (at least chunk 0)
+  rank_chunk(c0, 0, nk, e, vs, ql, d1, d2, w1, w2);
+  if (n_chunks > 1) rank_chunk(c1, 1, nk, e, vs, ql, d1, d2, w1, w2);
+  for (int g = 2; g < n_chunks; g += kGroup) {
+    int4 buf[kGroup];
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    if (4 * c < 2 + nk) {
+    for (int j = 0; j < kGroup; ++j) {
+      if (g + j < n_chunks) buf[j] = load(g + j);
+    }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = 4 * c + j - 2;
-        if (k >= 0 && k < nk) {
-          float xs[3];
-          const float d = dequant(words[4 * c + j], e, vs, ql, xs);
-          if (d < d1) { d2 = d1; w2 = w1; d1 = d; w1 = words[4 * c + j]; }
-          else if (d < d2) { d2 = d; w2 = words[4 * c + j]; }
-        }
-      }
+    for (int j = 0; j < kGroup; ++j) {
+      if (g + j < n_chunks) rank_chunk(buf[j], g + j, nk, e, vs, ql, d1, d2, w1, w2);
     }
   }
   float x1[3], x2[3];
@@ -282,17 +308,11 @@ __global__ void __launch_bounds__(32 * kGatherWarps) capture_gather_kernel(
   const int cnt = st & 0xFFFF;
   const int nk = (any_ok && cnt > 0) ? min(cnt, K) : 0;
 
-  // ---- the way's live point words (16-byte reads), top-2 ----
+  // ---- the way's live point words (16-byte reads of the staged row), top-2 ----
   const int4* wp = reinterpret_cast<const int4*>(row + wsel * stride);
-  int words[4 * kChunks];
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    int4 x = make_int4(0, 0, 0, 0);
-    if (4 * c < 2 + nk) x = wp[c];
-    words[4 * c] = x.x; words[4 * c + 1] = x.y; words[4 * c + 2] = x.z; words[4 * c + 3] = x.w;
-  }
   const size_t o1 = (size_t)(b * 2 * P + p) * npad + i;
-  select_top2(words, nk, e, vs, ql, (has_valid && !vq) ? 0.f : 1.f, cx, cy, cz, cm, o1, o1 + (size_t)P * npad);
+  select_top2([wp](int c) { return wp[c]; }, wp[0], wp[1], nk, e, vs, ql, (has_valid && !vq) ? 0.f : 1.f, cx, cy,
+              cz, cm, o1, o1 + (size_t)P * npad);
   if (rows_out != nullptr) bulk_store_wait_read();  // the row stays put until the store has read it
 }
 
@@ -342,31 +362,20 @@ __global__ void __launch_bounds__(kReselectThreads) reselect_kernel(
     if (ok) wsel = w;
     any_ok = any_ok || ok;
   }
-  int words[4 * kChunks];
+  int4 c0 = h0[0], c1 = h1[0];
 #pragma unroll
-  for (int c = 0; c < 4 * kChunks; ++c) words[c] = 0;
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    if (w == wsel) {
-      words[0] = h0[w].x; words[1] = h0[w].y; words[2] = h0[w].z; words[3] = h0[w].w;
-      words[4] = h1[w].x; words[5] = h1[w].y; words[6] = h1[w].z; words[7] = h1[w].w;
-    }
+  for (int w = 1; w < W; ++w) {
+    if (w == wsel) { c0 = h0[w]; c1 = h1[w]; }
   }
-  const int cnt = words[1] & 0xFFFF;
+  const int cnt = c0.y & 0xFFFF;
   const int nk = (any_ok && cnt > 0) ? min(cnt, K) : 0;
 
   // ---- point pass: the selected way's further chunks that hold a word
-  // k < nk; a dead probe reads nothing more ----
+  // k < nk, streamed through the top-2; a dead probe reads nothing more ----
   const int4* wp = row + wsel * kWay;
-#pragma unroll
-  for (int c = 2; c < kChunks; ++c) {
-    if (4 * c < 2 + nk) {
-      const int4 x = __ldg(wp + c);
-      words[4 * c] = x.x; words[4 * c + 1] = x.y; words[4 * c + 2] = x.z; words[4 * c + 3] = x.w;
-    }
-  }
   const size_t o1 = (size_t)(b * 2 * P + p) * npad + i;
-  select_top2(words, nk, e, vs, ql, (has_valid && !vq) ? 0.f : 1.f, cx, cy, cz, cm, o1, o1 + (size_t)P * npad);
+  select_top2([wp](int c) { return __ldg(wp + c); }, c0, c1, nk, e, vs, ql, (has_valid && !vq) ? 0.f : 1.f, cx,
+              cy, cz, cm, o1, o1 + (size_t)P * npad);
 }
 
 }  // namespace
@@ -377,13 +386,20 @@ extern "C" int capture_launch(
     float* cm, int B, int N, int npad, int P, int neighbors, int K, int stride, int n_buckets,
     int has_valid, void* stream) {
   const int per_block = 32 * kGatherWarps;
-  static bool carveout_set = false;  // once: the launch itself stays capturable in a CUDA graph
-  if (!carveout_set) {
+  // Once per device (function attributes are the current device's), so the
+  // launch itself stays capturable in a CUDA graph.
+  constexpr int kMaxDevices = 64;
+  static bool carveout_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t de = cudaGetDevice(&dev);
+  if (de != cudaSuccess) return (int)de;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!carveout_set[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(capture_gather_kernel,
                                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                                (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
-    carveout_set = true;
+    carveout_set[dev] = true;
   }
   const dim3 grid((unsigned)((npad + per_block - 1) / per_block), (unsigned)P, (unsigned)B);
   capture_gather_kernel<<<grid, per_block, 0, (cudaStream_t)stream>>>(

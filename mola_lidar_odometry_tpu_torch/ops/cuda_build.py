@@ -109,3 +109,14 @@ def stream_ptr(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def launch(fn, argv, device, kernel: str) -> None:
+    """Call the launcher ``fn(*argv, stream)`` on ``device``'s current
+    stream with ``device`` the thread's current CUDA device (a kernel runs
+    on its stream's device only, and a process may hold tensors on a card
+    other than its current one), then :func:`check` its error code."""
+    import torch
+
+    with torch.cuda.device(device):
+        check(fn(*argv, stream_ptr(device)), kernel)

@@ -91,6 +91,11 @@ def map_def_from_yaml(name: str, md: dict, num_slots: int) -> MapLayerDef:
     )
 
 
+def insert(state, pc: PointCloud, sensor_origin=None, layer_def: MapLayerDef = None):
+    """Insert into any map layer; :func:`insert_stats` without its counters."""
+    return insert_stats(state, pc, sensor_origin, layer_def)[0]
+
+
 def insert_stats(state, pc: PointCloud, sensor_origin=None, layer_def: MapLayerDef = None):
     """Insert + capacity-pressure counters (``voxel_hash.InsertStats``)."""
     md = layer_def.min_distance_between_points if layer_def else 0.0

@@ -178,6 +178,11 @@ def _seg_or_total(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return torch.gather(v, 1, t[..., None].expand_as(v))
 
 
+def insert(m: NdtMap, pc: PointCloud, min_distance: float = 0.0) -> NdtMap:
+    """Accumulate the valid points of ``pc`` (map frame) into the Gaussians."""
+    return insert_stats(m, pc, min_distance)[0]
+
+
 def insert_stats(m: NdtMap, pc: PointCloud, min_distance: float = 0.0) -> Tuple[NdtMap, InsertStats]:
     """Sort-fused insert + capacity counters (the JAX ``ndt.insert_stats``).
 
@@ -403,3 +408,13 @@ def p2pl_from(cand: NdtCandSet, queries: torch.Tensor, valid: torch.Tensor):
     dpl = se3.dot3(best_nrm, queries - best_mu)  # signed plane distance
     plane_pt = se3.fma_f32(-dpl[..., None].expand_as(best_nrm), best_nrm, queries)  # as XLA fuses it
     return plane_pt, best_nrm, torch.where(found, dpl * dpl, torch.inf), found
+
+
+def query_p2p(m: NdtMap, queries: torch.Tensor, valid: torch.Tensor, *, neighbors: int = 27):
+    """Single-shot nearest-mean query."""
+    return p2p_from(capture(m, queries, neighbors), queries, valid)
+
+
+def query_p2pl(m: NdtMap, queries: torch.Tensor, valid: torch.Tensor, *, neighbors: int = 27):
+    """Single-shot nearest-plane query."""
+    return p2pl_from(capture(m, queries, neighbors), queries, valid)

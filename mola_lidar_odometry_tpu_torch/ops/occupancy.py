@@ -188,6 +188,13 @@ def _dda_voxels(origin: torch.Tensor, xyz: torch.Tensor, valid: torch.Tensor, vo
     return coords, emit
 
 
+def insert(
+    m: OccupancyMap, pc: PointCloud, sensor_origin=None, *, ray_trace: bool = True, max_ray_samples: int = 512
+) -> OccupancyMap:
+    """Insert a scan (map frame); :func:`insert_stats` without its counters."""
+    return insert_stats(m, pc, sensor_origin, ray_trace=ray_trace, max_ray_samples=max_ray_samples)[0]
+
+
 def insert_stats(
     m: OccupancyMap, pc: PointCloud, sensor_origin=None, *, ray_trace: bool = True, max_ray_samples: int = 512
 ) -> Tuple[OccupancyMap, vh.InsertStats]:

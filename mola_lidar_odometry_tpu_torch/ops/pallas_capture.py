@@ -279,8 +279,6 @@ def _check(B, n, npad, neighbors, K, voxel_size, epoch, q_live, q_cap, valid, te
     ):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"capture kernel: {name} must be contiguous {dt} on {dev}")
-    if K > 32:
-        raise ValueError(f"capture kernel: K={K} > 32 points per voxel")
     if neighbors not in (1, 4, 8, 27) or npad < n:
         raise ValueError(f"capture kernel: neighbors={neighbors}, npad={npad} < N={n}")
     if voxel_size.shape != (B,) or epoch.shape != (B,) or q_cap.shape != q_live.shape:
@@ -345,7 +343,7 @@ def capture_launcher(
     )
 
     def launch():
-        cuda_build.check(fn(*argv, cuda_build.stream_ptr(dev)), "capture_gather_kernel")
+        cuda_build.launch(fn, argv, dev, "capture_gather_kernel")
 
     launch.tensors = (data, voxel_size, inv_vs, epoch, queries, valid_u8, rows, planes)
 
@@ -403,7 +401,7 @@ def reselect_launcher(
     )
 
     def launch():
-        cuda_build.check(fn(*argv, cuda_build.stream_ptr(dev)), "reselect_kernel")
+        cuda_build.launch(fn, argv, dev, "reselect_kernel")
 
     launch.tensors = (rows, voxel_size, inv_vs, epoch, queries_live, queries_cap, valid_u8, planes)
 

@@ -454,7 +454,7 @@ def align_launcher(
     )
 
     def launch():
-        cuda_build.check(fn(*argv, cuda_build.stream_ptr(dev)), "align_kernel")
+        cuda_build.launch(fn, argv, dev, "align_kernel")
 
     launch.tensors = (pts, valid_u8, planar, params, thr2, kc, out)  # alive as long as launch
 

@@ -101,11 +101,8 @@ def nn_select(planar: PlanarCands, queries: torch.Tensor) -> Tuple[torch.Tensor,
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    err = fn(
-        cuda_build.ptr(queries), *(cuda_build.ptr(p) for p in planar), cuda_build.ptr(out),
-        B * N, C, cuda_build.stream_ptr(dev),
-    )
-    cuda_build.check(err, "nn_select_kernel")
+    argv = (cuda_build.ptr(queries), *(cuda_build.ptr(p) for p in planar), cuda_build.ptr(out), B * N, C)
+    cuda_build.launch(fn, argv, dev, "nn_select_kernel")
     nn_select.launches += 1
     return out[..., :3], out[..., 3]
 

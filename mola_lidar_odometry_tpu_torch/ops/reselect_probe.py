@@ -11,9 +11,9 @@ packed once, by CUDA events around CUDA-graph replays, at the inputs of
 launch held bit for bit against the plain twins.  The builds run in turns,
 the port's first and last, so that drift shows.  Copies:
 
-  * ``two_scans``: the top-2 as two first-min scans over a K-wide distance
-    array (the selection B2 was first redesigned with), against the port's
-    one-pass top-2;
+  * ``two_scans``: the top-2 as two first-min scans, each streaming the
+    selected way's live words (the selection B2 was first redesigned with,
+    without its K-wide distance array), against the port's one-pass top-2;
   * ``sector64``: B2's header pass also reads each way's second 32-byte
     sector, so the working set (about 50 MB at these inputs) no longer fits
     in the L2 and the replays read it from DRAM.
@@ -34,38 +34,51 @@ from unittest import mock
 from mola_lidar_odometry_tpu_torch.ops import cuda_build, pallas_capture as pc
 
 _ONE_PASS = """  float d1 = kBig, d2 = kBig;
-  int w1 = words[2], w2 = words[2];
+  int w1 = c0.z, w2 = c0.z;
+  const int n_chunks = (2 + nk + 3) / 4;  // the chunks holding a word k < nk (at least chunk 0)
+  rank_chunk(c0, 0, nk, e, vs, ql, d1, d2, w1, w2);
+  if (n_chunks > 1) rank_chunk(c1, 1, nk, e, vs, ql, d1, d2, w1, w2);
+  for (int g = 2; g < n_chunks; g += kGroup) {
+    int4 buf[kGroup];
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    if (4 * c < 2 + nk) {
+    for (int j = 0; j < kGroup; ++j) {
+      if (g + j < n_chunks) buf[j] = load(g + j);
+    }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = 4 * c + j - 2;
-        if (k >= 0 && k < nk) {
-          float xs[3];
-          const float d = dequant(words[4 * c + j], e, vs, ql, xs);
-          if (d < d1) { d2 = d1; w2 = w1; d1 = d; w1 = words[4 * c + j]; }
-          else if (d < d2) { d2 = d; w2 = words[4 * c + j]; }
-        }
-      }
+    for (int j = 0; j < kGroup; ++j) {
+      if (g + j < n_chunks) rank_chunk(buf[j], g + j, nk, e, vs, ql, d1, d2, w1, w2);
     }
   }
 """
-_TWO_SCANS = """  float dk[kMaxK];
-  float xs[3];
+_TWO_SCANS = """  float d1 = kBig;
+  int w1 = c0.z, k1 = 0;
+  for (int c = 0; 4 * c < 2 + nk; ++c) {
+    const int4 x = c == 0 ? c0 : (c == 1 ? c1 : load(c));
+    const int w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-  for (int k = 0; k < kMaxK; ++k) dk[k] = (k < nk) ? dequant(words[2 + k], e, vs, ql, xs) : kBig;
-  float d1 = dk[0];
-  int w1 = words[2], k1 = 0;
+    for (int j = 0; j < 4; ++j) {
+      const int k = 4 * c + j - 2;
+      if (k >= 0 && k < nk) {
+        float xs[3];
+        const float d = dequant(w[j], e, vs, ql, xs);
+        if (d < d1) { d1 = d; k1 = k; w1 = w[j]; }
+      }
+    }
+  }
+  float d2 = kBig;
+  int w2 = c0.z;
+  for (int c = 0; 4 * c < 2 + nk; ++c) {
+    const int4 x = c == 0 ? c0 : (c == 1 ? c1 : load(c));
+    const int w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-  for (int k = 1; k < kMaxK; ++k)
-    if (k < nk && dk[k] < d1) { d1 = dk[k]; k1 = k; w1 = words[2 + k]; }
-  float d2 = (k1 == 0) ? kBig : dk[0];
-  int w2 = words[2];
-#pragma unroll
-  for (int k = 1; k < kMaxK; ++k) {
-    const float d = (k == k1) ? kBig : dk[k];
-    if (k < nk && d < d2) { d2 = d; w2 = words[2 + k]; }
+    for (int j = 0; j < 4; ++j) {
+      const int k = 4 * c + j - 2;
+      if (k >= 0 && k < nk && k != k1) {
+        float xs[3];
+        const float d = dequant(w[j], e, vs, ql, xs);
+        if (d < d2) { d2 = d; w2 = w[j]; }
+      }
+    }
   }
 """
 _HEADERS = "  for (int w = 0; w < W; ++w) { h0[w] = __ldg(row + w * kWay); h1[w] = __ldg(row + w * kWay + 1); }\n"
@@ -76,7 +89,8 @@ _SECTOR64 = _HEADERS + """  unsigned spare = 0;
     spare ^= (unsigned)(a.x ^ a.y ^ a.z ^ a.w ^ c.x ^ c.y ^ c.z ^ c.w);
   }
 """
-_B2_MASK = "  select_top2(words, nk, e, vs, ql, (has_valid && !vq) ? 0.f : 1.f, cx, cy, cz, cm, o1, o1 + (size_t)P * npad);\n}\n\n}"
+_B2_MASK = ("  select_top2([wp](int c) { return __ldg(wp + c); }, c0, c1, nk, e, vs, ql, (has_valid && !vq) ? 0.f : "
+            "1.f, cx,\n              cy, cz, cm, o1, o1 + (size_t)P * npad);\n}\n\n}")
 # the words read are kept live by a mask test that no real input meets
 _B2_MASK_SPARE = _B2_MASK.replace("(has_valid && !vq)", "((has_valid && !vq) || spare == 0x9E3779B9u)")
 

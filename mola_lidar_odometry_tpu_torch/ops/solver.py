@@ -3,7 +3,8 @@ Horn's closed form, batched over the fleet.
 
 Port of ``mola_lidar_odometry_tpu/ops/solver.py`` (``PosePrior``, the
 Geman-McClure weight, ``PairingBlock``, ``gauss_newton_step_blocks``,
-``solve_gauss_newton_blocks``, ``solve_horn``).  The fused align kernel (B3)
+``solve_gauss_newton_blocks``, the single pairing-set ``gauss_newton_step``
+and ``solve_gauss_newton``, ``solve_horn``).  The fused align kernel (B3)
 carries its own Gauss-Newton loop; these serve the generic align loop.  The
 normal equations are one batched einsum over all (padded) pairings and the
 6x6 system goes to ``torch.linalg.solve_ex``, which, unlike
@@ -130,6 +131,41 @@ def solve_gauss_newton_blocks(
     total = torch.zeros((pose.t.shape[0], 6), dtype=torch.float32, device=pose.t.device)
     for _ in range(inner_iterations):
         pose, eps = gauss_newton_step_blocks(pose, blocks, kernel_c, prior)
+        total = total + eps
+    return pose, total
+
+
+def gauss_newton_step(
+    pose: Pose,
+    p_local: torch.Tensor,  # (B, N, 3) local points (vehicle frame)
+    q_global: torch.Tensor,  # (B, N, 3) paired map points
+    pair_valid: torch.Tensor,  # (B, N) bool
+    kernel_c,
+    prior: PosePrior,
+    damping: float = 1e-8,
+) -> Tuple[Pose, torch.Tensor]:
+    """One Gauss-Newton update over one set of point-to-point pairings:
+    the block step over a single block of weight 1, the same arithmetic;
+    returns (new pose, tangent increment (B, 6))."""
+    blk = PairingBlock("p2p", p_local, q_global, torch.zeros_like(p_local), pair_valid, 1.0)
+    return gauss_newton_step_blocks(pose, [blk], kernel_c, prior, damping)
+
+
+def solve_gauss_newton(
+    pose: Pose,
+    p_local: torch.Tensor,
+    q_global: torch.Tensor,
+    pair_valid: torch.Tensor,
+    kernel_c,
+    prior: PosePrior,
+    inner_iterations: int = 2,
+) -> Tuple[Pose, torch.Tensor]:
+    """The solver's inner loop over one fixed set of pairings
+    (Solver_GaussNewton ``maxIterations``); returns (pose, total tangent
+    increment)."""
+    total = torch.zeros((pose.t.shape[0], 6), dtype=torch.float32, device=pose.t.device)
+    for _ in range(inner_iterations):
+        pose, eps = gauss_newton_step(pose, p_local, q_global, pair_valid, kernel_c, prior)
         total = total + eps
     return pose, total
 

@@ -1,19 +1,21 @@
 """Device-resident sliding hash-voxel point map, batched over the fleet.
 
-Port of the main-path subset of ``mola_lidar_odometry_tpu/ops/voxel_hash.py``
-(the insert, the rolling-slab and whole-table prunes, the occupancy map's
-slot claim, the neighbourhood capture, the nearest-candidate selects
-``nn_from``/``nn2_from`` and the plane fit ``p2pl_from`` over a captured
-set).  The table
-keeps the JAX layout word for word, so the two packages' tables compare
-directly:
+Port of ``mola_lidar_odometry_tpu/ops/voxel_hash.py`` (the insert with
+its ``min_distance_between_points`` dedup and budget, the rolling-slab and
+whole-table prunes, the occupancy map's slot claim, the neighbourhood
+capture, the nearest-candidate selects ``nn_from``/``nn2_from``, the plane
+fit ``p2pl_from`` over a captured set and the single-shot ``query_*``).
+The table keeps the JAX layout word for word, so the two packages' tables
+compare directly:
 
-  * ``data (B, rows, 128) int32``: each 128-lane row is one W-way bucket of
-    ``W = 128 // stride`` slot windows;
+  * ``data (B, rows, 128) int32``: for strides up to 128 each 128-lane row
+    is one W-way bucket of ``W = 128 // stride`` slot windows; a 256-lane
+    window (K from 127 to 254) spans two rows and is a bucket of one way;
   * slot window ``[pkey | state | packed_pt * K | unused]``: ``pkey`` is the
     voxel key wrapped 12|12|8 bits (x|y|z), ``state`` is
     ``(epoch & 0xffff) << 16 | count``, and each point is one word holding
-    its within-voxel offset quantized 10|10|10 bits;
+    its within-voxel offset quantized 10|10|10 bits (a full window has no
+    unused lane);
   * a slot is live only while its epoch field equals the map's ``epoch``,
     so ``clear()`` is an epoch bump.
 
@@ -21,9 +23,9 @@ Insertion is the JAX package's sort-fused algorithm: one stable 2-key sort
 ``(bucket, signed pkey)`` groups each voxel's points, segmented scans in the
 sorted domain give way claims and per-voxel ranks, and one flat scatter of
 3 words per stored point updates the table.  JAX drops out-of-range scatter
-indices; ``index_put_`` cannot, so dropped entries are redirected to an
-unused lane of each instance's first slot window (lane ``stride - 1``, never
-read and always zero) and write zero there.  The insert and the prune update
+indices; ``index_put_`` cannot, so each dropped entry repeats an entry that
+is written anyway (:func:`_scatter_set`), which leaves the table as JAX's
+drop does without a lane to spare.  The insert and the prune update
 ``data`` IN PLACE (the map returned holds the same tensor), which saves a
 whole-table copy per step; callers must not keep the pre-insert table.
 """
@@ -155,6 +157,12 @@ class VoxelHashMap(NamedTuple):
         """(B, V, stride) i32 — one window per logical slot."""
         return self.data.view(self.data.shape[0], self.num_slots, self.stride)
 
+    def buckets(self) -> torch.Tensor:
+        """(B, num_buckets, W * stride) i32 — all ways of each bucket: the
+        128-lane rows for strides up to 128, row pairs for stride 256 (the
+        JAX package's ``_gather_buckets`` reads the same words)."""
+        return self.data.view(self.data.shape[0], self.num_buckets, self.ways * self.stride)
+
     def count(self) -> torch.Tensor:
         """(B, V) live point count per slot."""
         state = self.windows()[..., 1]
@@ -180,12 +188,6 @@ class VoxelHashMap(NamedTuple):
         stride = _pick_stride(K)
         if num_slots * stride < 128:  # tiny test maps: widen the windows
             stride = 128 // num_slots
-        if stride > 128 or stride <= 2 + K:
-            # the insert's dropped-entry lane needs an unused lane per window
-            raise NotImplementedError(
-                f"points_per_voxel={K} fills its {stride}-lane window: "
-                "ROADMAP queue A, 'other pipeline families' (item 3.4, rgbd)"
-            )
         rows = num_slots * stride // 128
         return VoxelHashMap(
             voxel_size=torch.full((batch,), float(voxel_size), dtype=torch.float32, device=device),
@@ -231,6 +233,30 @@ def _seg_cumsum_reverse(x: torch.Tensor, tail: torch.Tensor) -> torch.Tensor:
     return torch.flip(_seg_cumsum(torch.flip(x, [-1]), torch.flip(tail, [-1])), [-1])
 
 
+def _scatter_set(data: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> None:
+    """``data[b].flat[idx[b, j]] = vals[b, j]`` in place for every entry
+    with ``idx >= 0``; an entry with ``idx < 0`` is dropped, as JAX drops an
+    out-of-range scatter index.  The written indices of an instance must be
+    distinct.  ``index_put_`` drops nothing, so a dropped entry repeats the
+    instance's first written entry, index and value (or, when it writes
+    none, word 0 with its own value): every word then receives one value
+    only, the same on every run, and no lane has to stay unused."""
+    B = data.shape[0]
+    flat = data.view(B, -1)
+    live = idx >= 0
+    first = torch.argmax(live.to(torch.int32), dim=-1, keepdim=True)  # 0 when none is live
+    any_live = torch.any(live, dim=-1, keepdim=True)
+    idx = torch.where(live, idx, torch.where(any_live, torch.gather(idx, 1, first), 0))
+    vals = torch.where(live, vals, torch.where(any_live, torch.gather(vals, 1, first), flat[:, :1]))
+    flat_idx = idx.to(torch.int64) + torch.arange(B, device=data.device).view(B, 1) * flat.shape[1]
+    data.view(-1).index_put_((flat_idx.view(-1),), vals.reshape(-1))
+
+
+def insert(m: VoxelHashMap, pc: PointCloud, min_distance: float = 0.0) -> VoxelHashMap:
+    """Insert the valid points of ``pc`` (already in the map frame)."""
+    return insert_stats(m, pc, min_distance)[0]
+
+
 def insert_stats(
     m: VoxelHashMap, pc: PointCloud, min_distance: float = 0.0, budget: int = 0
 ) -> Tuple[VoxelHashMap, InsertStats]:
@@ -239,11 +265,10 @@ def insert_stats(
     Same algorithm and results as the JAX ``voxel_hash.insert_stats``; with
     ``0 < budget < n`` only the first ``budget`` storable points in
     (fill depth, stream position) order are written, the rest counted in
-    ``deferred_drops``."""
-    if min_distance > 0:
-        raise NotImplementedError(
-            "min_distance_between_points > 0 on a point map: ROADMAP queue A, 'other pipeline families' (item 3.4, rgbd)"
-        )
+    ``deferred_drops``.  With ``min_distance > 0``
+    (``min_distance_between_points``) a point closer than that to a point
+    already stored in its voxel is refused; points of one batch do not see
+    each other, and a refusal is not counted as a collision drop."""
     K, W, NB, s = m.K, m.ways, m.num_buckets, m.stride
     B, n = pc.valid.shape
     dev = pc.xyz.device
@@ -267,7 +292,8 @@ def insert_stats(
     s_valid = sb < NB
     s_bucket = torch.where(s_valid, sb, pos % NB)
 
-    g = gather_rows(m.data, s_bucket).view(B, n, W, s)  # all W ways per point
+    g_flat = gather_rows(m.buckets(), s_bucket)  # (B, n, W * s): all W ways per point
+    g = g_flat.view(B, n, W, s)
     pk_w, st_w = g[..., 0], g[..., 1]
     fresh_w = ((st_w >> 16) & 0xFFFF) == e16[..., None]
     match_w = fresh_w & (pk_w == spk[..., None]) & s_valid[..., None]
@@ -299,6 +325,20 @@ def insert_stats(
     way = torch.where(any_match, exist_way, claim_way)
     cnt_at = torch.where(any_match, cnt_exist, 0)
 
+    too_close = None
+    if min_distance > 0:
+        # the stored points of my voxel, from the gathered bucket row,
+        # dequantized against my own voxel coords (JAX :516-541)
+        s_xyz = gather_rows(pc.xyz, perm)
+        s_coords = voxel_coords(s_xyz, vs)
+        kj = torch.arange(K, dtype=torch.int32, device=dev)
+        cols = (way * s)[..., None] + 2 + kj
+        spts = unpack_points(torch.gather(g_flat, -1, cols.long()), s_coords[:, :, None, :], vs[..., None])
+        stored = kj < cnt_at[..., None]
+        d2s = torch.sum((spts - s_xyz[:, :, None, :]) ** 2, dim=-1)
+        too_close = torch.any(stored & (d2s < min_distance * min_distance), dim=-1)
+        accept = accept & ~too_close
+
     a32 = accept.to(torch.int32)
     rank = _seg_cumsum(a32, is_voxel_head) - a32
     dest = cnt_at + rank
@@ -326,28 +366,28 @@ def insert_stats(
     state_fin = _wrap_i32((e16.to(torch.int64) << 16) | cnt_fin).to(torch.int32)
     head = keep & (rank == 0)  # pkey/state written once per (voxel, way)
 
-    L = m.data.shape[1] * 128
-    scratch = s - 1  # unused lane of slot window 0: the dropped-entry sink
+    drop = -1  # the dropped-entry index (JAX's out-of-range one)
     p_base = (s_bucket * W + way) * s
     idx = torch.stack(
         [
-            torch.where(keep, p_base + 2 + dest, scratch),
-            torch.where(head, p_base, scratch),
-            torch.where(head, p_base + 1, scratch),
+            torch.where(keep, p_base + 2 + dest, drop),
+            torch.where(head, p_base, drop),
+            torch.where(head, p_base + 1, drop),
         ],
         dim=-1,
     )  # (B, n, 3)
     vals = torch.stack([s_packed, spk, state_fin], dim=-1)
     if compact:
         live = prio_live[..., None]
-        idx = torch.where(live, gather_rows(idx, prio_sel), scratch)
+        idx = torch.where(live, gather_rows(idx, prio_sel), drop)
         vals = gather_rows(vals, prio_sel)
-    vals = torch.where(idx == scratch, 0, vals)
-    flat_idx = idx.to(torch.int64) + torch.arange(B, device=dev).view(B, 1, 1) * L
-    m.data.view(-1).index_put_((flat_idx.view(-1),), vals.reshape(-1))
+    _scatter_set(m.data, idx.reshape(B, -1), vals.reshape(B, -1))
 
+    refused = s_valid & ~accept
+    if too_close is not None:
+        refused = refused & ~too_close  # dedup refusals are intended, not capacity pressure
     stats = InsertStats(
-        collision_drops=torch.sum(s_valid & ~accept, dim=-1, dtype=torch.int32),
+        collision_drops=torch.sum(refused, dim=-1, dtype=torch.int32),
         full_drops=torch.sum(accept & (dest >= K), dim=-1, dtype=torch.int32),
         deferred_drops=torch.sum(store & ~keep, dim=-1, dtype=torch.int32),
     )
@@ -430,7 +470,12 @@ def zero_state_slab(m: VoxelHashMap, slab: torch.Tensor, n_slabs: int = 64) -> V
     ridx = _slab_rows(m, slab, min(int(n_slabs), m.data.shape[1]))
     b = torch.arange(B, device=m.data.device)[:, None]
     lane = torch.arange(128, device=m.data.device)
-    is_state = (lane % m.stride) == 1
+    if m.stride <= 128:
+        is_state = (lane % m.stride) == 1
+    else:
+        # a window spans stride/128 rows: its state is lane 1 of its FIRST
+        # row only (lane 1 of the others holds a point word)
+        is_state = (lane == 1) & ((ridx % (m.stride // 128)) == 0)[..., None]
     m.data[b, ridx] = torch.where(is_state, 0, m.data[b, ridx])
     return m
 
@@ -487,7 +532,7 @@ def _capture(m: VoxelHashMap, queries: torch.Tensor, neighbors: int, per_voxel_n
     cand = neighbor_coords(queries, base, vs, neighbors)  # (B, N, P, 3)
     P = cand.shape[2]
     buckets = voxel_hash(cand, m.num_buckets)
-    gb = gather_rows(m.data, buckets.view(B, n * P)).view(B, n, P, W, s)
+    gb = gather_rows(m.buckets(), buckets.view(B, n * P)).view(B, n, P, W, s)
     target = pack_key(cand)
     e16 = m.epoch16.view(B, 1, 1, 1)
     ok_w = (gb[..., 0] == target[..., None]) & (((gb[..., 1] >> 16) & 0xFFFF) == e16)
@@ -600,6 +645,32 @@ def _p2pl(cand: CandSet, queries: torch.Tensor, valid: torch.Tensor, *, search_r
     dpl = -torch.sum(nrm * mean_rel, dim=-1)  # signed distance: query - centroid
     plane_pt = queries - dpl[..., None] * nrm
     return plane_pt, nrm, torch.where(found, dpl * dpl, torch.inf), found
+
+
+def query_nn(m: VoxelHashMap, queries: torch.Tensor, valid: torch.Tensor, *, neighbors: int = 27):
+    """Single-shot nearest-neighbour query (capture + select):
+    ``(nn_xyz (B, N, 3), dist2 (B, N), found (B, N))``."""
+    return nn_from(capture(m, queries, neighbors), queries, valid)
+
+
+def query_nn2(m: VoxelHashMap, queries: torch.Tensor, valid: torch.Tensor, *, neighbors: int = 27):
+    """Single-shot two-nearest query (``pairingsPerPoint: 2``)."""
+    return nn2_from(capture(m, queries, neighbors), queries, valid)
+
+
+def query_p2pl(
+    m: VoxelHashMap,
+    queries: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    search_radius: float = 0.8,
+    min_plane_points: int = 6,
+    plane_eigen_threshold: float = 1e-2,
+    neighbors: int = 27,
+):
+    """Single-shot point-to-plane query against a point map."""
+    return p2pl_from(capture(m, queries, neighbors), queries, valid, search_radius=search_radius,
+                     min_plane_points=min_plane_points, plane_eigen_threshold=plane_eigen_threshold)
 
 
 def derive_anchor_vox(m: VoxelHashMap) -> torch.Tensor:

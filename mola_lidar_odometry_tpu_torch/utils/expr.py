@@ -7,8 +7,10 @@ Port of ``mola_lidar_odometry_tpu/utils/expr.py``: expressions such as
 
 are parsed once at config-load time into a tiny AST, then evaluated per frame
 on Python floats or torch tensors (a fleet evaluates on ``(B,)`` tensors, one
-value per instance).  Python floats stay floats; any tensor operand makes the
-result a float32 tensor on that tensor's device.
+value per instance).  Host numbers are typed as the JAX package's ``jnp``
+types them: Python (float64) arithmetic until a function call, whose result
+is a numpy float32, as is all arithmetic that meets it.  Any tensor operand
+makes the result a float32 tensor on that tensor's device.
 
 Supported grammar (superset of what the reference pipelines use):
   expr    := term (('+'|'-') term)*
@@ -23,9 +25,11 @@ exp, log, floor, ceil, pow, saturate(x, lo, hi), deg2rad, rad2deg.
 from __future__ import annotations
 
 import math
+import operator
 import re
 from typing import Mapping, Union
 
+import numpy as np
 import torch
 
 Scalar = Union[float, torch.Tensor]
@@ -49,38 +53,56 @@ def _lift(*vals):
     ]
 
 
-def _fn(torch_fn, math_fn):
+def _fn(torch_fn, np_fn):
+    """A function of the DSL. On host numbers it computes as the JAX
+    package's ``jnp`` function does: in float32, to a float32 result."""
+
     def f(*vals):
         lifted = _lift(*vals)
-        return math_fn(*vals) if lifted is None else torch_fn(*lifted)
+        if lifted is None:
+            return np.float32(np_fn(*(np.float32(v) for v in vals)))
+        return torch_fn(*lifted)
 
     return f
 
 
+def _binop(op, x, y):
+    """``x op y`` with jnp's weak typing on host numbers: a Python number
+    meeting a float32 value becomes float32 (numpy 1.x would widen it)."""
+    if (isinstance(x, np.float32) or isinstance(y, np.float32)) and not (
+        torch.is_tensor(x) or torch.is_tensor(y)
+    ):
+        x, y = np.float32(x), np.float32(y)
+    return _OPS[op](x, y)
+
+
+_OPS = {"+": operator.add, "-": operator.sub, "*": operator.mul, "/": operator.truediv,
+        "%": operator.mod, "^": operator.pow}
+
 _FUNCS_1 = {
-    "sqrt": _fn(torch.sqrt, math.sqrt),
-    "abs": _fn(torch.abs, abs),
-    "sin": _fn(torch.sin, math.sin),
-    "cos": _fn(torch.cos, math.cos),
-    "tan": _fn(torch.tan, math.tan),
-    "asin": _fn(torch.arcsin, math.asin),
-    "acos": _fn(torch.arccos, math.acos),
-    "atan": _fn(torch.arctan, math.atan),
-    "exp": _fn(torch.exp, math.exp),
-    "log": _fn(torch.log, math.log),
-    "floor": _fn(torch.floor, math.floor),
-    "ceil": _fn(torch.ceil, math.ceil),
-    "deg2rad": lambda x: x * (math.pi / 180.0),
-    "rad2deg": lambda x: x * (180.0 / math.pi),
+    "sqrt": _fn(torch.sqrt, np.sqrt),
+    "abs": _fn(torch.abs, np.abs),
+    "sin": _fn(torch.sin, np.sin),
+    "cos": _fn(torch.cos, np.cos),
+    "tan": _fn(torch.tan, np.tan),
+    "asin": _fn(torch.arcsin, np.arcsin),
+    "acos": _fn(torch.arccos, np.arccos),
+    "atan": _fn(torch.arctan, np.arctan),
+    "exp": _fn(torch.exp, np.exp),
+    "log": _fn(torch.log, np.log),
+    "floor": _fn(torch.floor, np.floor),
+    "ceil": _fn(torch.ceil, np.ceil),
+    "deg2rad": lambda x: _binop("*", x, math.pi / 180.0),
+    "rad2deg": lambda x: _binop("*", x, 180.0 / math.pi),
 }
 _FUNCS_2 = {
-    "max": _fn(torch.maximum, max),
-    "min": _fn(torch.minimum, min),
-    "atan2": _fn(torch.atan2, math.atan2),
-    "pow": _fn(torch.pow, math.pow),
+    "max": _fn(torch.maximum, np.maximum),
+    "min": _fn(torch.minimum, np.minimum),
+    "atan2": _fn(torch.atan2, np.arctan2),
+    "pow": _fn(torch.pow, np.power),
 }
 _FUNCS_3 = {
-    "saturate": _fn(lambda x, lo, hi: torch.clamp(x, lo, hi), lambda x, lo, hi: min(max(x, lo), hi)),
+    "saturate": _fn(lambda x, lo, hi: torch.clamp(x, lo, hi), np.clip),
 }
 
 
@@ -219,25 +241,13 @@ def _eval(node, env: Mapping[str, Scalar]) -> Scalar:
     if tag == "bin":
         _, op, a, b = node
         x, y = _eval(a, env), _eval(b, env)
-        if op == "+":
-            return x + y
-        if op == "-":
-            return x - y
-        if op == "*":
-            return x * y
-        if op == "/":
-            return x / y
-        if op == "%":
-            return x % y
-        if op == "^":
+        if op == "^" and isinstance(y, float) and y == int(y) and 0 <= y <= 4:
             # integer powers unroll to multiplies (cheap + exact)
-            if isinstance(y, float) and y == int(y) and 0 <= y <= 4:
-                n = int(y)
-                r = 1.0
-                for _ in range(n):
-                    r = r * x
-                return r
-            return x**y
+            r = 1.0
+            for _ in range(int(y)):
+                r = _binop("*", r, x)
+            return r
+        return _binop(op, x, y)
     if tag == "call":
         _, fname, args = node
         vals = [_eval(a, env) for a in args]

@@ -1,0 +1,155 @@
+"""The JAX package's CPU figures for ``chip_smoke.py``'s phase 11.
+
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/phase11_jax_figures.py [tag ...]
+
+On the bench's first 8 scans (64 x 2048 rays, ``bench.py``'s world,
+trajectory, sensor model and seeds), ONE instance of the JAX package's fleet
+step (the phase's eight instances all see these scans) for each
+configuration of ``chip_smoke.COMPLETE`` at the sizes its
+``utils/capacity.py`` derives from the first scan: per frame the quality,
+iterations and flags, then the mean quality, the final-pose GT error and
+the collision drops against the points offered to the map.
+The fused configuration (``k64``) runs the JAX package's TPU algorithm (its
+Pallas kernels in interpret mode), the others its generic loop with the XLA
+twin of the nearest-select kernel, as the family tests do.
+
+Tag ``oracle``: the JAX package's ``LidarOdometry`` (auto-sized, the TPU
+algorithm) beside its float64 oracle over the same scans, and the three
+figures of ``tests/test_oracle_parity.py``: the worst per-pose SE(3)
+log-norm between them, the engine-to-oracle ATE-RMSE as a share of the path
+and the oracle's GT error per frame; with the oracle's seconds per scan.
+
+Each tag runs in a process of its own (the knobs are read when a spec is
+built and traced); with no tag, every tag runs, three at a time.  One JSON
+line per tag.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.join(HERE, "..")
+TPU_ALGO = {"MOLA_TPU_PALLAS": "1", "MOLA_TPU_PER_VOXEL_NN": "1", "MOLA_TPU_PALLAS_CAPTURE": "1"}
+GENERIC = {"MOLA_TPU_PALLAS": "0", "MOLA_TPU_PER_VOXEL_NN": "1"}
+N_SCANS = 8
+
+
+def _scans():
+    from mola_lidar_odometry_tpu.utils import sim as jsim
+
+    world = jsim.make_world(0, extent=60.0, n_boxes=100, n_plates=50)
+    traj = jsim.make_trajectory(N_SCANS, dt=0.1, seed=1, speed=8.0)
+    return traj, [
+        jsim.simulate_scan(world, traj.R[k], traj.t[k], traj.twists[k], n_rings=64, n_azimuth=2048, fov_up_deg=3.0,
+                           fov_down_deg=-24.0, spin_period=0.1, noise=0.01, max_range=80.0, seed=1000 + k)
+        for k in range(N_SCANS)
+    ]
+
+
+def _gt_error(traj, k, R, t) -> float:
+    from mola_lidar_odometry_tpu.oracle import relative, se3_log
+
+    R0, t0 = traj.R[0], traj.t[0]
+    Rr, tr = relative(R0.T @ traj.R[k], R0.T @ (traj.t[k] - t0), np.asarray(R, np.float64), np.asarray(t, np.float64))
+    return float(np.linalg.norm(se3_log(Rr, tr)))
+
+
+def run_config(tag: str) -> dict:
+    import chip_smoke
+
+    os.environ.update(TPU_ALGO if tag == "k64" else GENERIC)
+    if tag in chip_smoke.COMPLETE_ANDERSON:
+        os.environ["MOLA_TPU_ICP_ANDERSON"] = str(chip_smoke.COMPLETE_ANDERSON[tag])
+    import jax
+
+    from mola_lidar_odometry_tpu.models.spec import spec_from_yaml
+    from mola_lidar_odometry_tpu.parallel import batch as pb
+    from mola_lidar_odometry_tpu.utils.capacity import derive_capacities
+    from mola_lidar_odometry_tpu.utils.config import load_yaml_file
+
+    traj, scans = _scans()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = chip_smoke.complete_cfg(tag, tmp, load_yaml_file)
+    x0, t0, _, v0 = scans[0]
+    names = ("raw_capacity", "map_slots", "layer_capacities", "insert_budgets")
+    sizing = dict(zip(names, derive_capacities(spec_from_yaml(cfg), x0[v0], t0[v0], with_budgets=True,
+                                               known_max_points=max(int(v.sum()) for *_, v in scans))))
+    spec = spec_from_yaml(cfg, kf_ring_capacity=256, **sizing)
+    step = jax.jit(pb.make_fleet_step(spec))
+    carry = pb.init_fleet_carry(spec, 1)
+    rows = []
+    for k, (xyz, times, rings, valid) in enumerate(scans):
+        t1 = time.time()
+        carry, out = step(carry, pb.pack_scans(spec, [(xyz, times, rings, valid)], [traj.stamps[k]]))
+        rows.append(dict(frame=k, quality=float(out.quality[0]), iterations=int(out.iterations[0]),
+                         corrections=int(out.corrections[0]), accepted=bool(out.accepted[0]),
+                         collision_drops=int(out.map_collision_drops[0]), n_map=int(out.n_map_layer[0]),
+                         seconds=round(time.time() - t1, 2)))
+        print(tag, rows[-1], file=sys.stderr, flush=True)
+    m = carry.maps["localmap"]
+    return dict(tag=tag, sizing=sizing, K=int(m.K), stride=int(m.stride),
+                min_distance=float(spec.map_layers[0].min_distance_between_points),
+                anderson_m=int(spec.icp_with_vel.anderson_m), horn=spec.icp_with_vel.horn is not None,
+                one_to_one=not spec.icp_with_vel.matchers[0].allow_match_already_matched,
+                iterations=[r["iterations"] for r in rows], quality=[r["quality"] for r in rows],
+                accepted=[r["accepted"] for r in rows], collision_drops=sum(r["collision_drops"] for r in rows),
+                map_points=sum(r["n_map"] for r in rows),
+                mean_quality=float(np.mean([r["quality"] for r in rows[1:]])),
+                final_pose_gt_error=_gt_error(traj, N_SCANS - 1, carry.pose_R[0], carry.pose_t[0]))
+
+
+def run_oracle() -> dict:
+    os.environ.update(TPU_ALGO)
+    from mola_lidar_odometry_tpu.models.odometry import LidarOdometry
+    from mola_lidar_odometry_tpu.models.spec import spec_from_yaml
+    from mola_lidar_odometry_tpu.oracle import OracleOdometry, relative, se3_log
+    from mola_lidar_odometry_tpu.utils.config import load_yaml_file
+
+    import chip_smoke
+
+    traj, scans = _scans()
+    path = os.path.join(ROOT, "pipelines", "lidar3d-default.yaml")
+    lo = LidarOdometry.from_yaml_file(path, env={}, kf_ring_capacity=256)
+    oracle = OracleOdometry(spec_from_yaml(load_yaml_file(path, env={})))
+    eng, ora, secs = [], [], []
+    for k, (xyz, times, rings, valid) in enumerate(scans):
+        out = lo.on_lidar_scan(xyz[valid], traj.stamps[k], times=times[valid], ring=rings[valid])
+        t1 = time.time()
+        o = oracle.step(xyz[valid].astype(np.float64), times[valid].astype(np.float64), float(traj.stamps[k]))
+        secs.append(time.time() - t1)
+        eng.append((np.asarray(out.pose_R), np.asarray(out.pose_t)))
+        ora.append((o.R, o.t, o.quality, o.accepted))
+        print("oracle", k, float(out.quality), o.quality, round(secs[-1], 2), file=sys.stderr, flush=True)
+    figures = chip_smoke.oracle_figures(traj, eng, [(R, t) for R, t, _, _ in ora], relative, se3_log)
+    return dict(tag="oracle", **figures, oracle_quality=[q for *_, q, _ in ora],
+                oracle_accepted=[a for *_, a in ora], oracle_seconds_per_scan=secs)
+
+
+def main(argv) -> int:
+    sys.path.insert(0, ROOT)
+    if len(argv) == 1:
+        print(json.dumps(run_oracle() if argv[0] == "oracle" else run_config(argv[0])), flush=True)
+        return 0
+    import chip_smoke
+
+    tags = argv or list(chip_smoke.COMPLETE) + ["oracle"]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=ROOT)
+    for i in range(0, len(tags), 3):
+        procs = [subprocess.Popen([sys.executable, __file__, t], env=env, stdout=subprocess.PIPE, text=True)
+                 for t in tags[i:i + 3]]
+        for t, p in zip(tags[i:i + 3], procs):
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                raise SystemExit(f"{t}: exit {p.returncode}")
+            print(out.strip().splitlines()[-1], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))

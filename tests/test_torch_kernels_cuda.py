@@ -72,6 +72,34 @@ def test_capture_kernels_bit_exact(dev, nbr, n, masked):
         assert torch.equal(g, r)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,nbr", [(30, 8), (62, 8), (64, 8), (64, 27), (126, 8), (126, 4)])
+def test_capture_kernels_every_window(dev, K, nbr):
+    """B1 and B2 at windows past 32 points: full 32- and 64-lane windows
+    (K = 30, 62), and 128-lane ones (K = 64, 126, the last full), on a map
+    whose dense voxels hold more than 32 points, bit for bit."""
+    rng = np.random.default_rng(K)
+    pts = np.concatenate([rng.uniform(-6, 6, (B, 3000, 3)), rng.normal(0.5, 0.25, (B, 3000, 3))], axis=1)
+    pts = torch.from_numpy(pts.astype(np.float32)).to(dev)
+    m = vh.VoxelHashMap.create(1 << 12, K, 1.0, batch=B, device=dev)
+    for _ in range(2):
+        m, _ = vh.insert_stats(m, PointCloud.from_xyz(pts))
+    assert m.stride == {30: 32, 62: 64}.get(K, 128) and int(m.count().max()) == K
+    assert int((m.count() > 32).sum()) > 0 or K <= 32
+    q = (pts[:, ::9] + 0.05 * torch.randn_like(pts[:, ::9])).contiguous()
+    valid = torch.rand(q.shape[:2], device=dev) > 0.1
+    args = (m.data, m.voxel_size, m.epoch, q, nbr)
+    kw = dict(K=m.K, stride=m.stride, valid=valid, return_rows=True)
+    got, ref = pc.capture_planar(*args, **kw), pc.capture_planar_plain(*args, **kw)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    moved = se3.transform(se3.se3_exp(torch.tensor([0.05, 0.0, -0.02, 0.0, 0.01, 0.0], device=dev).expand(B, 6)), q)
+    args2 = (got[4], m.voxel_size, m.epoch, moved.contiguous(), q, nbr)
+    kw2 = dict(K=m.K, stride=m.stride, valid=valid)
+    for g, r in zip(pc.capture_planar_reselect(*args2, **kw2), pc.capture_planar_reselect_plain(*args2, **kw2)):
+        assert torch.equal(g, r)
+
+
 def _reselect_case(dev, case):
     """B2's arguments for one edge case, on rows B1 gathered at ``q_cap``;
     returns them with a check that the case holds what it is named for."""

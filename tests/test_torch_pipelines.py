@@ -1,6 +1,5 @@
 """Every shipped pipeline (the four top-level ones and the extras) built
-and stepped by the port's ``LidarOdometry`` on the CPU at small sizes, and
-the point-map options that still raise, naming their ROADMAP queue A item."""
+and stepped by the port's ``LidarOdometry`` on the CPU at small sizes."""
 
 import os
 
@@ -8,7 +7,6 @@ import numpy as np
 import pytest
 import torch
 
-from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud as TPC
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -58,19 +56,3 @@ def test_every_shipped_pipeline_builds_and_steps(rel):
     outs = [lo.on_lidar_scan(x[v], traj.stamps[k], times=t[v], ring=r[v]) for k, (x, t, r, v) in enumerate(scans)]
     assert all(bool(o.processed) for o in outs) and int(outs[-1].n_raw) > 0
     assert all(np.isfinite(o.pose_t).all() for o in outs)
-
-
-@pytest.mark.parametrize("opt,item", [("min_distance", "item 3.4, rgbd"), ("deep_voxels", "item 3.4, rgbd")])
-def test_unported_point_map_options_name_their_roadmap_item(opt, item):
-    """What stays unported raises, naming its queue A item: a point map's
-    ``min_distance_between_points > 0`` (at the insert) and K >= 127 points
-    per voxel (at creation)."""
-    from mola_lidar_odometry_tpu_torch.ops import voxel_hash as tvh
-
-    with pytest.raises(NotImplementedError, match="other pipeline families") as err:
-        if opt == "min_distance":
-            m = tvh.VoxelHashMap.create(1 << 10, 20, 1.0, 1, "cpu")
-            tvh.insert_stats(m, TPC.from_xyz(torch.zeros((1, 4, 3))), min_distance=0.1)
-        else:
-            tvh.VoxelHashMap.create(1 << 10, 127, 1.0, 1, "cpu")
-    assert item in str(err.value)
