@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only-point-axis    # phases 1, 2 and 12 (the four-card NCCL run)
 
 Phases, one line of numbers each:
 
@@ -164,8 +165,26 @@ Phases, one line of numbers each:
                visible card when there are more), equal to the one-process
                fleet bit for bit, both wall times printed.
 
+ 12. point axis — parallel/batch.py::PointShardedFleet, the JAX package's
+               make_sharded_fleet_step: each scan's 131072 padded points
+               split over the point cells of a mesh row, lidar3d-default
+               (SIZING, B1-B3 on the whole ICP layer on every cell) and then
+               lidar3d-dual-map (DUALMAP_SIZING, the generic loop on B4, its
+               normal equations all-reduced) over POINT_SCANS bench scans.
+               On one card a 1 x 2 mesh, both cells on the card over gloo
+               (the split and the merge, not the scaling); with four or more
+               cards nccl over fleet 2 x point 2 and then fleet 1 x point 4.
+               Held against the one-process fleet of as many instances on
+               the first card: lidar3d-default every output bit for bit,
+               dual-map every integer output bit for bit and poses within
+               POINT_POSE_TOL; every cell's map replica hashed and compared
+               after every step.  Prints the collectives and their bytes per
+               step of cell 0, the kernels launched in the cells (added to
+               the kernels line) and the seconds per step beside the
+               one-process fleet's.
+
 Then one JSON line describing every kernel (launches summed over phases
-4-11), the card's name and power limit, and last the JSON result line.  Any
+4-12), the card's name and power limit, and last the JSON result line.  Any
 failure raises and exits non-zero.  It imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -2082,6 +2101,118 @@ def phase_fleet_split(dev, scans, traj):
         + ("; with one card this checks the split and the merge, not the scaling" if n_cards <= 1 else ""))
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the point axis
+# ---------------------------------------------------------------------------
+
+POINT_SCANS = 4
+# dual-map's poses through the point axis against the one-process fleet's:
+# the normal equations are summed per cell and then across the cells, in
+# another order than one card sums them; the loop stops on steps below
+# 1e-4 m and 5e-5 rad, so the reordering moves the answer by a small part
+# of the last step, a tenth of which is the bound (tests/test_torch_point_axis.py)
+POINT_POSE_TOL = 1e-5
+POINT_ANSWER_S = 180.0  # a cell that does not answer a step in this time ends the phase
+POINT_INTEGERS = ("iterations", "processed", "accepted", "kf_local", "kf_simplemap", "sm_insert", "map_restarted",
+                  "n_raw", "n_icp_layer", "n_map_layer", "corrections", "map_collision_drops", "map_full_drops",
+                  "deferred_drops")
+
+
+def point_meshes():
+    """The meshes phase 12 runs: a 1 x 2 mesh on one card (gloo), or nccl
+    over distinct cards: 2 x 2 then 1 x 4 with four or more, 1 x 2 with
+    two or three."""
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.parallel import batch as pb
+
+    n = torch.cuda.device_count()
+    if n >= 4:
+        return [pb.make_mesh(4, point_axis=2), pb.make_mesh(4, point_axis=4)]
+    if n >= 2:
+        return [pb.make_mesh(2, point_axis=2)]
+    return [[["cuda:0", "cuda:0"]]]
+
+
+def phase_point_axis(dev, scans, traj):
+    """Phase 12: lidar3d-default then lidar3d-dual-map through the point
+    axis on each of :func:`point_meshes` against the one-process fleet on
+    the first card (see the module docstring).  Returns each kernel's
+    launches in the cells."""
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.models.spec import spec_from_yaml
+    from mola_lidar_odometry_tpu_torch.parallel import batch as pb
+    from mola_lidar_odometry_tpu_torch.utils.config import load_yaml_file
+
+    t_phase = time.time()
+    launches = collections.Counter()
+    sub = scans[:POINT_SCANS]
+    for tag, pipe, sizing in (("default", "lidar3d-default.yaml", SIZING),
+                              ("dual-map", DUALMAP_PIPE, DUALMAP_SIZING)):
+        spec = spec_from_yaml(load_yaml_file(os.path.join(HERE, "pipelines", pipe), env={}), kf_ring_capacity=256,
+                              **sizing)
+        for mesh in point_meshes():
+            F, P = len(mesh), len(mesh[0])
+            fstep = pb.make_fleet_step(spec)
+            carry = pb.init_fleet_carry(spec, F, device=dev)
+            ref, one_s = [], []
+            for k, s_ in enumerate(sub):
+                t1 = time.time()
+                carry, out = fstep(carry, pb.pack_scans(spec, [s_] * F, [traj.stamps[k]] * F, device=dev))
+                ref.append(host_fields(out))
+                one_s.append(time.time() - t1)
+            del carry
+            torch.cuda.empty_cache()  # the cells share the card with this process on a one-card mesh
+            t1 = time.time()
+            with pb.PointShardedFleet(spec, mesh, answer_s=POINT_ANSWER_S) as fleet:
+                start_s = time.time() - t1
+                got, split_s, colls = [], [], []
+                for k, s_ in enumerate(sub):
+                    t1 = time.time()
+                    got.append(fleet.step([s_] * F, [traj.stamps[k]] * F))
+                    split_s.append(time.time() - t1)
+                    colls.append(fleet.collectives[0])
+                    if any(len(set(row)) != 1 for row in fleet.map_hashes):
+                        raise AssertionError(f"point axis {tag}: map replicas differ at scan {k}: {fleet.map_hashes}")
+                here = collections.Counter()
+                for cell in fleet.launches:
+                    here.update(cell)
+                launches.update(here)
+                backend = fleet.backend
+            worst = 0.0
+            for k, (g, r) in enumerate(zip(got, ref)):
+                for f in r:
+                    exact = tag == "default" or f in POINT_INTEGERS or f == "stamp"
+                    d = np.abs(getattr(g, f).astype(np.float64) - r[f].astype(np.float64))
+                    if exact and not np.array_equal(getattr(g, f), r[f]):
+                        raise AssertionError(f"point axis {tag} {F}x{P}: {f} at scan {k} differs from the "
+                                             f"one-process fleet's ({d.max()})")
+                    if f in ("pose_R", "pose_t"):
+                        worst = max(worst, float(d.max()))
+            if worst > POINT_POSE_TOL:
+                raise AssertionError(f"point axis {tag} {F}x{P}: poses {worst:.3g} from the one-process fleet's "
+                                     f"(bound {POINT_POSE_TOL})")
+            if not all(g.accepted.all() for g in got[1:]):
+                raise AssertionError(f"point axis {tag} {F}x{P}: a frame was not accepted")
+            per_step = {kind: [list(c.get(kind, (0, 0))) for c in colls] for kind in ("all_reduce", "all_gather")}
+            log(f"point axis {tag}: fleet {F} x point {P} over {backend} on {sorted({d for row in mesh for d in row})}, "
+                f"{spec.raw_capacity // P} points of each scan per cell: "
+                + ("every output equals the one-process fleet's bit for bit" if tag == "default" else
+                   f"every integer output equals the one-process fleet's, poses within {worst:.3g} "
+                   f"(bound {POINT_POSE_TOL})")
+                + f" over {len(sub)} scans; map replicas equal on every cell after every scan")
+            log(f"point axis {tag} {F}x{P}: collectives of cell 0 per scan [calls, bytes]: {json.dumps(per_step)}")
+            log(f"point axis {tag} {F}x{P}: kernels launched in the {F * P} cells {dict(here)}")
+            log(f"point axis {tag} {F}x{P}: seconds per scan {[round(x, 4) for x in split_s]} (median of scans "
+                f"1..{len(sub) - 1}: {np.median(split_s[1:]):.4f}; cells started in {start_s:.1f} s) against "
+                f"{[round(x, 4) for x in one_s]} (median {np.median(one_s[1:]):.4f}) for the one-process fleet "
+                f"of {F} instance(s) on {dev}"
+                + ("; one card: the split and the merge, not the scaling" if backend == "gloo" else ""))
+    log(f"point axis: phase 12 took {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def host_fields(out) -> dict:
     """A StepOutput's fields on the host as numpy arrays."""
     return {f: v.cpu().numpy() for f, v in zip(out._fields, out)}
@@ -2115,8 +2246,9 @@ def phase_paths(dev, recs):
     l9 = phase_lidar2d_rgbd(dev, recs, scans, traj)
     l10 = phase_surface(dev, recs, scans, traj)
     l11 = phase_complete(dev, recs, scans, traj)
+    l12 = phase_point_axis(dev, scans, traj)
     for r in recs:
-        r["launches"] = sum(ls.get(r["name"], 0) for ls in (main_l, dual_l, host_l, ndt_l, extra_l, l9, l10, l11))
+        r["launches"] = sum(ls.get(r["name"], 0) for ls in (main_l, dual_l, host_l, ndt_l, extra_l, l9, l10, l11, l12))
         del r["wrapper"]
     never = [r["name"] for r in recs if r["launches"] <= 0]
     if never:
@@ -2124,12 +2256,28 @@ def phase_paths(dev, recs):
 
 
 def main():
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on the GPU")
+    ap.add_argument("--only-point-axis", action="store_true", help="phases 1, 2 and 12 only (no kernels line)")
+    args = ap.parse_args()
     phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    if args.only_point_axis:
+        scans, traj = bench_scans(POINT_SCANS)
+        launches = phase_point_axis("cuda", scans, traj)
+        never = [k for k, v in launches.items() if v <= 0]
+        if never:
+            raise AssertionError(f"kernels never launched in the point axis's cells: {never}")
+        print(card_line(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return
     recs = phase_kernels("cuda")
     phase_kernel_windows("cuda")
     recs.append(phase_kernel_match("cuda"))

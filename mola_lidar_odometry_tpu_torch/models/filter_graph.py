@@ -18,6 +18,7 @@ import torch
 
 from mola_lidar_odometry_tpu_torch.ops import filters as F
 from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud, on_device
+from mola_lidar_odometry_tpu_torch.parallel import point_axis as pa
 from mola_lidar_odometry_tpu_torch.utils.config import as_bool, as_float, as_str
 from mola_lidar_odometry_tpu_torch.utils.expr import Expr, as_expr
 
@@ -193,11 +194,50 @@ class EdgesFromRangeImageOp:
 Pipeline = List[object]
 
 
-def apply_pipeline(pipeline: Pipeline, layers: Dict[str, PointCloud], env) -> Dict[str, PointCloud]:
+def apply_pipeline(pipeline: Pipeline, layers: Dict[str, PointCloud], env, axis=None) -> Dict[str, PointCloud]:
+    """Run the ops in order on a copy of ``layers``.  Under a point axis
+    (``parallel/point_axis.py``) a layer may be a ``PointSlice``, this
+    rank's slice of the scan: see :func:`_apply_on_axis`."""
     layers = dict(layers)
     for op in pipeline:
-        op(layers, env)
+        if axis is None:
+            op(layers, env)
+        else:
+            _apply_on_axis(op, layers, env, axis)
     return layers
+
+
+def _apply_on_axis(op, layers: Dict[str, PointCloud], env, axis) -> None:
+    """One op under a point axis.  Per-point ops (range, box, deskew,
+    intensity band, delete) run on the slice and keep it a slice.  The
+    timestamp shift and the intensity scale all-reduce their min / max.
+    Decimation keeps the first point of a voxel in scan order, and the
+    curvature and range-image masks compare a point with its neighbours in
+    buffer order, so their input is gathered in rank order first: a
+    FirstPoint decimation reads only the valid points, packed in order
+    (``gather_compact``), the others the whole padded layer, which then
+    replaces the slice.  Their outputs are whole, the same on every rank."""
+    if isinstance(op, AdjustTimestampsOp) and isinstance(layers.get(op.layer), pa.PointSlice):
+        layers[op.layer] = F.adjust_timestamps(
+            layers[op.layer], method=op.method, offset=op.time_offset(env), axis=axis
+        )
+    elif isinstance(op, NormalizeIntensityOp) and isinstance(layers[op.layer], pa.PointSlice):
+        layers[op.layer] = F.normalize_intensity(layers[op.layer], axis=axis)
+    elif isinstance(op, DecimateOp) and isinstance(layers[op.input], pa.PointSlice):
+        pc = layers[op.input]
+        if op.method == "FirstPoint":
+            whole = pa.gather_compact(pc, pc.capacity * axis.size, axis)
+        else:
+            whole = layers[op.input] = pa.gather_cloud(pc, axis)
+        scratch = {op.input: whole}
+        op(scratch, env)
+        layers[op.output] = scratch[op.output]
+    elif isinstance(op, (CurvatureOp, EdgesFromRangeImageOp)):
+        name = op.input if isinstance(op, CurvatureOp) else "raw"
+        layers[name] = pa.gather_cloud(layers[name], axis)
+        op(layers, env)
+    else:
+        op(layers, env)
 
 
 def deskew_ops(pipeline: Pipeline) -> List[DeskewOp]:

@@ -41,6 +41,7 @@ from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud, on_device
 from mola_lidar_odometry_tpu_torch.ops.se3 import Pose
 from mola_lidar_odometry_tpu_torch.ops.solver import PosePrior
 from mola_lidar_odometry_tpu_torch.ops.voxel_hash import InsertStats
+from mola_lidar_odometry_tpu_torch.parallel import point_axis as pa
 
 _TWIST_VARS = ("vx", "vy", "vz", "wx", "wy", "wz")
 
@@ -189,26 +190,48 @@ def _as_batch(v, like: torch.Tensor) -> torch.Tensor:
     return on_device(v, torch.float32, like.device).expand(like.shape[0])
 
 
+def _count(pc: PointCloud, axis) -> torch.Tensor:
+    """(B,) valid points of a layer; a slice's counts are summed over the
+    point axis."""
+    n = pc.count()
+    return pa.all_sum(n, axis) if isinstance(pc, pa.PointSlice) else n
+
+
+def _radius(pc: PointCloud, axis) -> torch.Tensor:
+    """(B,) bounding radius of a layer; a slice's is the max over the point
+    axis."""
+    r = pc.bounding_radius()
+    return pa.all_max(r, axis) if isinstance(pc, pa.PointSlice) else r
+
+
 def filter_scan(
-    spec: OdometrySpec, c: Carry, scan: Scan
+    spec: OdometrySpec, c: Carry, scan: Scan, axis=None
 ) -> Tuple[Carry, Dict[str, torch.Tensor], Dict[str, PointCloud]]:
     """Stages 2-5 of the step: the carry with its start time and, on the
     first frame, the sensor range (the raw bounding radius); the dynamic
     variables; and the scan's layers after the generator, timestamp and
-    filter pipelines, ``"raw"`` among them."""
+    filter pipelines, ``"raw"`` among them.  Under a point axis ``scan``
+    holds this rank's slice of every scan's points, and the layers that
+    still hold slices after the pipelines are ``PointSlice``s."""
     first_time = torch.where(c.frame_idx == 0, scan.stamp, c.first_time)
-    raw_pc = PointCloud(scan.xyz, scan.time, scan.intensity, scan.ring, scan.valid)
-    raw_radius = torch.clamp(raw_pc.bounding_radius(), min=spec.absolute_minimum_sensor_range)
+    raw_cls = PointCloud if axis is None else pa.PointSlice
+    raw_pc = raw_cls(scan.xyz, scan.time, scan.intensity, scan.ring, scan.valid)
+    raw_radius = torch.clamp(_radius(raw_pc, axis), min=spec.absolute_minimum_sensor_range)
     c1 = c._replace(est_range=torch.where(c.est_range > 0, c.est_range, raw_radius), first_time=first_time)
     env = _dynamic_env(spec, c1, scan.stamp)
     layers: Dict[str, PointCloud] = {"raw": raw_pc}
     for pipe in (spec.generator_pipeline, spec.adjust_pipeline, spec.filter1, spec.filter2):
-        layers = apply_pipeline(pipe, layers, env)
+        layers = apply_pipeline(pipe, layers, env, axis)
     return c1, env, layers
 
 
-def make_step(spec: OdometrySpec) -> Callable[[Carry, Scan], Tuple[Carry, StepOutput]]:
-    """Compile the spec into the fleet scan-step function."""
+def make_step(spec: OdometrySpec, axis=None) -> Callable[[Carry, Scan], Tuple[Carry, StepOutput]]:
+    """Compile the spec into the fleet scan-step function.  With a
+    ``PointAxis`` (``parallel/point_axis.py``) the step takes this rank's
+    slice of every scan's points and keeps the carry the same on every rank
+    of the point group: the counts and radii of slices are all-reduced,
+    the ICP and map layers are whole (gathered where they are still
+    slices), and the ICP sums its normal equations over the group."""
     dsk_ops = deskew_ops(spec.filter2)
 
     def redeskew(layers, twist):
@@ -234,13 +257,14 @@ def make_step(spec: OdometrySpec) -> Callable[[Carry, Scan], Tuple[Carry, StepOu
         matcher_layers = sorted({mc.local_layer for cc in (cfg, cfg_nomm) for mc in cc.matchers})
 
         def align_once(pose, layers_, budget):
-            icp_layers = {name: (layers_[name].xyz, layers_[name].valid) for name in matcher_layers}
-            res_w = icp_ops.align(c.maps, icp_layers, pose, prior, cfg, env, budget)
+            whole = {name: pa.gather_cloud(layers_[name], axis) for name in matcher_layers}
+            icp_layers = {name: (pc.xyz, pc.valid) for name, pc in whole.items()}
+            res_w = icp_ops.align(c.maps, icp_layers, pose, prior, cfg, env, budget, axis=axis)
             if cfg_nomm is cfg:
                 return res_w
             B = pose.t.shape[0]
             res_n = icp_ops.align(
-                c.maps, icp_layers, pose, PosePrior.none(B, pose.t.device), cfg_nomm, env, budget
+                c.maps, icp_layers, pose, PosePrior.none(B, pose.t.device), cfg_nomm, env, budget, axis=axis
             )
             return select(nav_est.valid, res_w, res_n)
 
@@ -271,8 +295,9 @@ def make_step(spec: OdometrySpec) -> Callable[[Carry, Scan], Tuple[Carry, StepOu
         # One host sync per correction round (the ``any``): the JAX package's
         # batched while_loop runs until no instance is pending; rounds are
         # rare (a hook stop), and removing the sync belongs to a later
-        # CUDA-graph change.
-        while bool(pending.any()):
+        # CUDA-graph change.  Under a point axis every rank takes the same
+        # branch (the ``any`` is all-reduced).
+        while bool(pa.all_any(pending.any(), axis)):
             redeskewed = redeskew(with_vary(vary), twist)
             vary2 = {k: redeskewed[k] for k in vary_names}
             res = align_once(pose, with_vary(vary2), rem)
@@ -287,19 +312,19 @@ def make_step(spec: OdometrySpec) -> Callable[[Carry, Scan], Tuple[Carry, StepOu
         B, dev = stamp.shape[0], stamp.device
         drop = (stamp - c.last_time) < spec.min_time_between_scans  # 1. masked whole-step skip
         first_ever = c.frame_idx == 0
-        c1, env, layers = filter_scan(spec, c, scan)  # 2-5
+        c1, env, layers = filter_scan(spec, c, scan, axis)  # 2-5
         first_time, est_range0, raw_pc = c1.first_time, c1.est_range, layers["raw"]
 
         # 2b. sensor range IIR update (ICP-layer radius)
         rng_layer = layers.get(spec.icp_local_layer, layers["raw"])
-        inst = torch.clamp(rng_layer.bounding_radius(), min=spec.absolute_minimum_sensor_range)
+        inst = torch.clamp(_radius(rng_layer, axis), min=spec.absolute_minimum_sensor_range)
         a = spec.max_sensor_range_filter_coefficient
         est_range = torch.where(first_ever, est_range0, a * est_range0 + (1 - a) * inst)
 
         # 6. observation validity
         ov = spec.observation_validity
         if ov.enabled:
-            obs_valid = layers.get(ov.check_layer_name, raw_pc).count() > ov.minimum_point_count
+            obs_valid = _count(layers.get(ov.check_layer_name, raw_pc), axis) > ov.minimum_point_count
         else:
             obs_valid = torch.ones_like(drop)
         active = obs_valid & ~drop
@@ -384,7 +409,7 @@ def make_step(spec: OdometrySpec) -> Callable[[Carry, Scan], Tuple[Carry, StepOu
             maps_post[name] = maps_ops.clear_where(maps_ops.set_voxel_size(m0, vs), restart)
         ins_stats = InsertStats.zero(B, dev)
         for op in spec.map_inserts:
-            insert_pc = layers_f.get(op.input_layer, layers_f[spec.icp_local_layer])
+            insert_pc = pa.gather_cloud(layers_f.get(op.input_layer, layers_f[spec.icp_local_layer]), axis)
             insert_global = insert_pc._replace(
                 xyz=se3.transform(new_pose, insert_pc.xyz), valid=insert_pc.valid & update_local_map[:, None]
             )
@@ -407,8 +432,8 @@ def make_step(spec: OdometrySpec) -> Callable[[Carry, Scan], Tuple[Carry, StepOu
             accepted=accepted & obs_valid, kf_local=update_local_map & obs_valid,
             kf_simplemap=(update_simplemap & distance_enough_sm) | sm_first,
             sm_insert=update_simplemap | sm_first, map_restarted=restart, est_range=est_range,
-            n_raw=raw_pc.count().to(i32), n_icp_layer=icp_layer_pc.count().to(i32),
-            n_map_layer=map_layer_pc.count().to(i32), corrections=corrections.to(i32),
+            n_raw=_count(raw_pc, axis).to(i32), n_icp_layer=_count(icp_layer_pc, axis).to(i32),
+            n_map_layer=_count(map_layer_pc, axis).to(i32), corrections=corrections.to(i32),
             map_collision_drops=ins_stats.collision_drops, map_full_drops=ins_stats.full_drops,
             deferred_drops=ins_stats.deferred_drops,
         )

@@ -21,6 +21,7 @@ import torch
 
 from mola_lidar_odometry_tpu_torch.ops import se3
 from mola_lidar_odometry_tpu_torch.ops.pointcloud import PointCloud, gather_rows
+from mola_lidar_odometry_tpu_torch.parallel.point_axis import all_max
 
 # Spatial hash primes (standard Teschner et al. constants).
 _HX, _HY, _HZ = 73856093, 19349663, 83492791
@@ -185,11 +186,17 @@ def filter_bounding_box(pc: PointCloud, bb_min, bb_max) -> Tuple[PointCloud, Poi
     return pc.with_mask(inside), pc.with_mask(~inside)
 
 
-def adjust_timestamps(pc: PointCloud, *, method: str = "MiddleIsZero", offset=0.0) -> PointCloud:
-    """Shift per-point timestamps (FilterAdjustTimestamps)."""
+def adjust_timestamps(pc: PointCloud, *, method: str = "MiddleIsZero", offset=0.0, axis=None) -> PointCloud:
+    """Shift per-point timestamps (FilterAdjustTimestamps).  Under a point
+    axis (``parallel/point_axis.py``) ``pc`` is this rank's slice and the
+    scan's earliest and latest stamps are one all-reduce (max of -min, max
+    and any)."""
     tmin = torch.amin(torch.where(pc.valid, pc.time, float("inf")), dim=-1)
     tmax = torch.amax(torch.where(pc.valid, pc.time, -float("inf")), dim=-1)
     any_valid = torch.any(pc.valid, dim=-1)
+    if axis is not None:
+        red = all_max(torch.stack([-tmin, tmax, any_valid.to(torch.float32)]), axis)
+        tmin, tmax, any_valid = -red[0], red[1], red[2] > 0
     tmin = torch.where(any_valid, tmin, 0.0)
     tmax = torch.where(any_valid, tmax, 0.0)
     if method == "MiddleIsZero":
@@ -216,10 +223,10 @@ def deskew(pc: PointCloud, twist: torch.Tensor, *, skip: bool = False) -> PointC
     return pc._replace(xyz=torch.where(pc.valid[..., None], xyz, pc.xyz))
 
 
-def normalize_intensity(pc: PointCloud) -> PointCloud:
+def normalize_intensity(pc: PointCloud, axis=None) -> PointCloud:
     """Scale intensities into [0, 1] by the per-frame max
-    (FilterNormalizeIntensity)."""
-    m = torch.amax(torch.where(pc.valid, pc.intensity, 0.0), dim=-1, keepdim=True)
+    (FilterNormalizeIntensity); under a point axis the max is all-reduced."""
+    m = all_max(torch.amax(torch.where(pc.valid, pc.intensity, 0.0), dim=-1, keepdim=True), axis)
     return pc._replace(intensity=pc.intensity / torch.clamp(m, min=1e-12))
 
 

@@ -50,6 +50,7 @@ from mola_lidar_odometry_tpu_torch.ops.solver import (
     solve_horn,
 )
 from mola_lidar_odometry_tpu_torch.ops.voxel_hash import CandSet, VoxelHashMap
+from mola_lidar_odometry_tpu_torch.parallel import point_axis as pa
 from mola_lidar_odometry_tpu_torch.utils.expr import Expr
 
 
@@ -205,7 +206,7 @@ def _capture_all(cfg: IcpConfig, maps, layers, pose: Pose) -> Tuple[Any, ...]:
     return tuple(sets)
 
 
-def _one_to_one(tgt: torch.Tensor, d2: torch.Tensor, pv: torch.Tensor) -> torch.Tensor:
+def _one_to_one(tgt: torch.Tensor, d2: torch.Tensor, pv: torch.Tensor, axis=None) -> torch.Tensor:
     """``allowMatchAlreadyMatchedGlobalPoints: false``: keep at most one
     pairing per global point — the lowest-index local claimant wins.
 
@@ -213,7 +214,11 @@ def _one_to_one(tgt: torch.Tensor, d2: torch.Tensor, pv: torch.Tensor) -> torch.
     hashed into a 65536-entry claim table per instance (one flat table,
     keys offset by ``b * table``); ``scatter_reduce_(amin)`` is
     deterministic.  A hash collision can drop a legitimate pair, as in the
-    JAX package."""
+    JAX package.  The claim is over every query, so under a point axis the
+    ranks' pairings are gathered and each rank keeps its own rows."""
+    if axis is not None:
+        keep = _one_to_one(pa.gather_points(tgt, axis), None, pa.gather_points(pv, axis))
+        return pa.own_rows(keep, axis)
     table = 1 << 16
     B, n = pv.shape
     dev = tgt.device
@@ -227,10 +232,11 @@ def _one_to_one(tgt: torch.Tensor, d2: torch.Tensor, pv: torch.Tensor) -> torch.
 
 
 def _matcher_blocks(
-    cfg: IcpConfig, candsets, layers, pose: Pose, env_it: Dict[str, object], it: torch.Tensor
+    cfg: IcpConfig, candsets, layers, pose: Pose, env_it: Dict[str, object], it: torch.Tensor, axis=None
 ) -> Tuple[List[PairingBlock], torch.Tensor, torch.Tensor]:
     """Match every matcher's candidates at ``pose`` (``it`` is the (B,)
-    iteration count); returns (blocks, paired (B,), n_local (B,))."""
+    iteration count); returns (blocks, paired (B,), n_local (B,)), the
+    counts of this rank's rows under a point axis."""
     B, dev = it.shape[0], it.device
     blocks: List[PairingBlock] = []
     paired = torch.zeros((B,), dtype=torch.float32, device=dev)
@@ -264,7 +270,7 @@ def _matcher_blocks(
             tgt, d2, found = maps_ops.match_p2p(cand, q, valid)
             pv = found & (d2 < thr * thr) & active
             if not mc.allow_match_already_matched:
-                pv = _one_to_one(tgt, d2, pv)
+                pv = _one_to_one(tgt, d2, pv, axis)
             blocks.append(PairingBlock("p2p", xyz, tgt, torch.zeros_like(xyz), pv, mc.weight))
         paired = paired + torch.sum(pv, dim=-1).to(torch.float32)
         n_local = n_local + torch.sum(valid, dim=-1).to(torch.float32)
@@ -323,9 +329,17 @@ def _anderson(cfg: IcpConfig, init_pose: Pose, pose: Pose, new_pose: Pose, horn_
     return out, X2, F2, hlen2
 
 
-def _align_generic(cfg: IcpConfig, maps, layers, init_pose: Pose, prior: PosePrior, env, budget) -> IcpResult:
-    """The generic matcher->solver loop (see the module docstring)."""
+def _align_generic(cfg: IcpConfig, maps, layers, init_pose: Pose, prior: PosePrior, env, budget,
+                   axis=None) -> IcpResult:
+    """The generic matcher->solver loop (see the module docstring).  Under a
+    point axis (``parallel/point_axis.py``) each rank captures and pairs its
+    own rows of every matcher's (whole) layer; the solvers sum their normal
+    equations over the group, the quality its counts, and the loop's exit
+    test is all-reduced, so every rank runs as many iterations and holds
+    the same pose."""
     B, dev = budget.shape[0], budget.device
+    if axis is not None:
+        layers = {name: (pa.own_rows(xyz, axis), pa.own_rows(valid, axis)) for name, (xyz, valid) in layers.items()}
     hook_on = cfg.hook_min_trans > 0 or cfg.hook_min_rot > 0
     m_aa = cfg.anderson_m
     # Capture-once: the twist hook bounds the in-align correction far below
@@ -345,9 +359,9 @@ def _align_generic(cfg: IcpConfig, maps, layers, init_pose: Pose, prior: PosePri
     def solver_update(pose, it, horn_active):
         """One matcher + solver pass: the fixed-point map G(pose)."""
         env_it = env_at(it)
-        blocks, _, _ = _matcher_blocks(cfg, get_candsets(pose), layers, pose, env_it, it)
+        blocks, _, _ = _matcher_blocks(cfg, get_candsets(pose), layers, pose, env_it, it, axis)
         gn_pose, _ = solve_gauss_newton_blocks(
-            pose, blocks, cfg.kernel_param(env_it), prior, cfg.gn_inner_iterations
+            pose, blocks, cfg.kernel_param(env_it), prior, cfg.gn_inner_iterations, axis=axis
         )
         p2p = [b for b in blocks if b.kind == "p2p"]
         if cfg.horn is None or not p2p:  # Horn needs point-to-point pairings
@@ -356,6 +370,7 @@ def _align_generic(cfg: IcpConfig, maps, layers, init_pose: Pose, prior: PosePri
             torch.cat([b.p_local for b in p2p], dim=1),
             torch.cat([b.q_global for b in p2p], dim=1),
             torch.cat([b.valid for b in p2p], dim=1),
+            axis=axis,
         )
         (new_pose,) = _select(horn_active, (horn_pose,), (gn_pose,))
         horn_step = torch.linalg.norm(horn_pose.t - pose.t, dim=-1)
@@ -390,14 +405,15 @@ def _align_generic(cfg: IcpConfig, maps, layers, init_pose: Pose, prior: PosePri
     )
     while True:
         live = ~state[2] & ~state[3] & (state[1] < budget)
-        if not bool(live.any()):  # the loop's one host sync per iteration
+        if not bool(pa.all_any(live.any(), axis)):  # the loop's one host sync per iteration
             break
         state = _select(live, body(state), state)
     pose, it, converged, hook = state[:4]
 
     # quality: paired ratio at the final pose and threshold
-    _, paired, n_local = _matcher_blocks(cfg, get_candsets(pose), layers, pose, env_at(it), it)
-    quality = paired / torch.clamp(n_local, min=1.0)
+    _, paired, n_local = _matcher_blocks(cfg, get_candsets(pose), layers, pose, env_at(it), it, axis)
+    counts = pa.all_sum(torch.stack([paired, n_local]), axis)
+    quality = counts[0] / torch.clamp(counts[1], min=1.0)
     return IcpResult(pose=pose, quality=quality, iterations=it, hook_stop=hook, converged=converged)
 
 
@@ -409,10 +425,14 @@ def align(
     cfg: IcpConfig,
     env: Dict[str, object],
     max_iterations=None,  # (B,) remaining-budget override
+    axis=None,  # a parallel.point_axis.PointAxis: the layers are whole, the same on every rank
 ) -> IcpResult:
     """Run the matcher->solver loop from ``init_pose`` for every instance
     until convergence, budget exhaustion or a hook stop: the fused path
-    where the configuration allows it, else the generic loop."""
+    where the configuration allows it, else the generic loop.  Under a
+    point axis the fused path's kernels run on every rank on the whole
+    layers (their results are the one-device results), and the generic
+    loop splits each layer's rows over the ranks."""
     mc0 = cfg.matchers[0]
     xyz = layers[mc0.local_layer][0]
     B, dev = xyz.shape[0], xyz.device
@@ -433,4 +453,4 @@ def align(
     )
     if fused:
         return _align_fused_call(cfg, maps, layers, init_pose, prior, env, budget)
-    return _align_generic(cfg, maps, layers, init_pose, prior, env, budget)
+    return _align_generic(cfg, maps, layers, init_pose, prior, env, budget, axis)

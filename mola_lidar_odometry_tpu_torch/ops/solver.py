@@ -23,6 +23,7 @@ import torch
 from mola_lidar_odometry_tpu_torch.ops import se3
 from mola_lidar_odometry_tpu_torch.ops.pointcloud import on_device
 from mola_lidar_odometry_tpu_torch.ops.se3 import Pose
+from mola_lidar_odometry_tpu_torch.parallel.point_axis import all_sum
 
 
 class PosePrior(NamedTuple):
@@ -97,11 +98,15 @@ def _trace(M: torch.Tensor) -> torch.Tensor:
 
 
 def gauss_newton_step_blocks(
-    pose: Pose, blocks: Sequence[PairingBlock], kernel_c, prior: PosePrior, damping: float = 1e-8
+    pose: Pose, blocks: Sequence[PairingBlock], kernel_c, prior: PosePrior, damping: float = 1e-8, axis=None
 ) -> Tuple[Pose, torch.Tensor]:
     """One robust GN update over heterogeneous pairing blocks + prior;
     returns (new pose, tangent increment (B, 6)).  An instance with no valid
-    pairing and no prior does not move (a mask, no host branch)."""
+    pairing and no prior does not move (a mask, no host branch).  Under a
+    point axis (``parallel/point_axis.py``) the blocks hold this rank's
+    pairings: H, b and the pairing flag are summed over the group in one
+    all-reduce before the prior and the solve, so every rank solves the
+    same system."""
     B, dev = pose.t.shape[0], pose.t.device
     H = torch.zeros((B, 6, 6), dtype=torch.float32, device=dev)
     b = torch.zeros((B, 6), dtype=torch.float32, device=dev)
@@ -110,6 +115,9 @@ def gauss_newton_step_blocks(
         Hb, bb = _block_normal_equations(pose, blk, kernel_c)
         H, b = H + Hb, b + bb
         any_pair = any_pair | torch.any(blk.valid, dim=-1)
+    if axis is not None:
+        red = all_sum(torch.cat([H.reshape(B, 36), b, any_pair.to(torch.float32)[:, None]], dim=1), axis)
+        H, b, any_pair = red[:, :36].reshape(B, 6, 6), red[:, 36:42], red[:, 42] > 0
 
     rp = se3.se3_log(se3.relative(prior.mean, pose))
     H = H + prior.info
@@ -124,13 +132,13 @@ def gauss_newton_step_blocks(
 
 
 def solve_gauss_newton_blocks(
-    pose: Pose, blocks: Sequence[PairingBlock], kernel_c, prior: PosePrior, inner_iterations: int = 2
+    pose: Pose, blocks: Sequence[PairingBlock], kernel_c, prior: PosePrior, inner_iterations: int = 2, axis=None
 ) -> Tuple[Pose, torch.Tensor]:
     """The solver's inner loop over fixed pairings (Solver_GaussNewton
     ``maxIterations``)."""
     total = torch.zeros((pose.t.shape[0], 6), dtype=torch.float32, device=pose.t.device)
     for _ in range(inner_iterations):
-        pose, eps = gauss_newton_step_blocks(pose, blocks, kernel_c, prior)
+        pose, eps = gauss_newton_step_blocks(pose, blocks, kernel_c, prior, axis=axis)
         total = total + eps
     return pose, total
 
@@ -183,25 +191,34 @@ def solve_horn(
     q_global: torch.Tensor,  # (B, N, 3)
     pair_valid: torch.Tensor,  # (B, N) bool
     weights: Optional[torch.Tensor] = None,
+    axis=None,
 ) -> Pose:
     """Closed-form weighted rigid alignment (Horn / Kabsch via SVD): the T
     minimizing sum w |T p - q|^2 per instance — the coarse stage of
-    ``Solver_Horn``.  Fewer than 3 pairs give the identity."""
+    ``Solver_Horn``.  Fewer than 3 pairs give the identity.  Under a point
+    axis the pairs are this rank's: the weight sums and centroid sums, then
+    the cross-covariance and the pair count, are summed over the group."""
     w = pair_valid.to(torch.float32)
     if weights is not None:
         w = w * weights
-    wsum = torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-9)
-    pc = torch.sum(w[..., None] * p_local, dim=1) / wsum
-    qc = torch.sum(w[..., None] * q_global, dim=1) / wsum
+    sums = all_sum(torch.cat([torch.sum(w, dim=-1, keepdim=True), torch.sum(w[..., None] * p_local, dim=1),
+                              torch.sum(w[..., None] * q_global, dim=1)], dim=1), axis)
+    wsum = torch.clamp(sums[:, :1], min=1e-9)
+    pc = sums[:, 1:4] / wsum
+    qc = sums[:, 4:7] / wsum
     P = (p_local - pc[:, None, :]) * w[..., None]
     Q = q_global - qc[:, None, :]
     C = torch.einsum("bni,bnj->bij", P, Q)  # (B, 3, 3) cross-covariance
+    n_pairs = torch.sum(pair_valid, dim=-1).to(torch.float32)
+    if axis is not None:
+        red = all_sum(torch.cat([C.reshape(-1, 9), n_pairs[:, None]], dim=1), axis)
+        C, n_pairs = red[:, :9].reshape(-1, 3, 3), red[:, 9]
     U, _, Vt = torch.linalg.svd(C)
     V, Ut = Vt.transpose(-1, -2), U.transpose(-1, -2)
     d = torch.sign(_det3(torch.matmul(V, Ut)))
     D = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1))
     R = torch.matmul(torch.matmul(V, D), Ut)
     t = qc - torch.einsum("bij,bj->bi", R, pc)
-    ok = torch.sum(pair_valid, dim=-1) >= 3
+    ok = n_pairs >= 3
     eye = torch.eye(3, dtype=torch.float32, device=R.device).expand_as(R)
     return Pose(torch.where(ok[:, None, None], R, eye), torch.where(ok[:, None], t, 0.0))
