@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only-point-axis    # phases 1, 2 and 12 (the four-card NCCL run)
+    python3 chip_smoke.py --only-tools         # phases 1, 2 and 13
 
 Phases, one line of numbers each:
 
@@ -183,8 +184,43 @@ Phases, one line of numbers each:
                the kernels line) and the seconds per step beside the
                one-process fleet's.
 
+ 13. tools   — the port's measuring tools (apps/), over the first 16 scans
+               of the bench's sequence (phases 4-12 take its first 8; the
+               scans are simulated once, one process per CPU core):
+               (a) apps/trace_step.py on the bench configuration
+               (lidar3d-default, B=8, sized by apps/bench_sequence.py): 10
+               warm-up steps, 6 under torch.profiler with Python stacks; the
+               device ms per step, the top rows with the port's source
+               that launched them, the busy share of the profiled window
+               beside an unprofiled step, the five largest gaps of each
+               device line and what follows them; B1-B3 must be among the
+               aggregated device events.  (b) apps/profile_stages.py at
+               B=1 and B=8 (the JAX script's sizes: raw 131072, ICP 8192,
+               map 65536, 131072 slots, 20 repeats): each stage's ms and
+               the kernels its calls launched.  (c) apps/cross_pipeline.py
+               over the eight 3D pipelines and the first 12 scans at the
+               JAX script's CAPS (B=1): each pipeline's worst gauge-aligned
+               error within CROSS_BAND (0.03, docs/benchmarks.md's band) of
+               CROSS_PIPELINE_JAX, the JAX package on a CPU driven as its
+               script drives it, running the port's algorithm (the
+               per-voxel capture: its TPU algorithm), and each frame's
+               error in float64 within CROSS_FRAME_TOL (or
+               CROSS_FRAME_TOL_APART) of the same figure from the JAX
+               poses; printed beside the script at its CPU
+               defaults (CROSS_PIPELINE_JAX_XLA) and docs/benchmarks.md's
+               figures.  (d) the multi-LiDAR grouping of
+               utils/runtime.py::AsyncLidarOdometry: lidar3d-default with
+               MOLA_LIDAR_COUNT=2, each of the 8 scans
+               split by azimuth half into two labelled sensors stamped 5 ms
+               apart: every group formed, every frame accepted, mean quality
+               and final-pose GT error within QUALITY_SPREAD / GT_SPREAD of
+               the same grouping on a CPU through the port
+               (MULTI_LIDAR_CPU) and through the JAX package
+               (MULTI_LIDAR_JAX).  The
+               launches of phase 13 go into the kernels line.
+
 Then one JSON line describing every kernel (launches summed over phases
-4-12), the card's name and power limit, and last the JSON result line.  Any
+4-13), the card's name and power limit, and last the JSON result line.  Any
 failure raises and exits non-zero.  It imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -194,6 +230,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -1022,55 +1059,25 @@ def phase_kernel_match(dev):
 # ---------------------------------------------------------------------------
 
 
-def bench_scans(n: int):
-    """The first ``n`` scans of the bench's sequence (bench.py:47-57): the
-    same world, trajectory, sensor model and seeds."""
-    from mola_lidar_odometry_tpu_torch.utils import sim
-
-    world = sim.make_world(0, extent=60.0, n_boxes=100, n_plates=50)
-    traj = sim.make_trajectory(n, dt=0.1, seed=1, speed=8.0)
-    scans = [
-        sim.simulate_scan(
-            world, traj.R[k], traj.t[k], traj.twists[k], n_rings=64, n_azimuth=2048,
-            fov_up_deg=3.0, fov_down_deg=-24.0, spin_period=0.1, noise=0.01, max_range=80.0,
-            seed=1000 + k,
-        )
-        for k in range(n)
-    ]
-    return scans, traj
-
-
 LAST_PROFILE = {}  # the figures of the last profiled step
 
 
 def profile_step(fstep, carry, scan):
     """One fleet step under torch.profiler: wall time, device-busy time and
-    the device kernels that take the most of it."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    the device kernels that take the most of it (apps/trace_step.py's
+    aggregation of the trace's device events by name)."""
+    from mola_lidar_odometry_tpu_torch.apps.trace_step import profile_device
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        carry, out = fstep(carry, scan)
-        torch.cuda.synchronize()
-        wall = (time.time() - t0) * 1e3
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-
-    # device-side events only (kernels, copies, sets); the aten:: entries
-    # carry the same device time again
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    busy = sum(dev_us(e) for e in evs) / 1e3
-    n_kernels = sum(e.count for e in evs)
+    (carry, out), wall, rows, total = profile_device(lambda: fstep(carry, scan), "cuda")
+    rows = [r for r in rows if r[1] > 0]
+    busy = total / 1e3
+    n_kernels = sum(r[2] for r in rows)
     log(f"profile: last step {wall:.2f} ms wall (profiled), device busy {busy:.3f} ms "
         f"({100 * busy / wall:.1f}%), {n_kernels} device kernels/copies")
     LAST_PROFILE.update(wall_ms=wall, busy_ms=busy, device_ops=n_kernels)
-    ranked = sorted(evs, key=dev_us, reverse=True)
     own = ("capture_gather_kernel", "reselect_kernel", "align_kernel", "nn_select_kernel")  # wherever they rank
-    for e in ranked[:12] + [e for e in ranked[12:] if any(k in e.key for k in own)]:
-        log(f"profile:   {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    for name, us, n in rows[:12] + [r for r in rows[12:] if any(k in r[0] for k in own)]:
+        log(f"profile:   {us / 1e3:8.3f} ms  x{n:<5d} {name[:90]}")
     return carry, out
 
 
@@ -1203,31 +1210,9 @@ def phase_sizing(scans):
 
 def gt_error(traj, k, R, t) -> float:
     """Gauge-aligned SE(3) log-norm error of pose k (relative to frame 0)."""
-    import torch
+    from mola_lidar_odometry_tpu_torch.apps.cross_pipeline import gt_error as error
 
-    from mola_lidar_odometry_tpu_torch.ops import se3
-
-    def G(i):
-        return se3.Pose(torch.tensor(traj.R[i], dtype=torch.float32), torch.tensor(traj.t[i], dtype=torch.float32))
-
-    est = se3.Pose(torch.as_tensor(R, dtype=torch.float32), torch.as_tensor(t, dtype=torch.float32))
-    return float(torch.linalg.norm(se3.se3_log(se3.relative(se3.relative(G(0), G(k)), est))))
-
-
-def _clone(x):
-    """``x`` with every tensor in it (in tuples, named tuples, lists and
-    dicts) cloned."""
-    import torch
-
-    if torch.is_tensor(x):
-        return x.clone()
-    if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*(_clone(v) for v in x))
-    if isinstance(x, (tuple, list)):
-        return type(x)(_clone(v) for v in x)
-    if isinstance(x, dict):
-        return {k: _clone(v) for k, v in x.items()}
-    return x
+    return error(traj, k, R, t)
 
 
 class _Recorder:
@@ -1240,7 +1225,9 @@ class _Recorder:
         self._w, self._r, self._calls = wrapper, rec, calls
 
     def __call__(self, *a, **k):
-        self._calls.append((self._r, _clone(a), _clone(k)))
+        from mola_lidar_odometry_tpu_torch.utils.tree import clone
+
+        self._calls.append((self._r, clone(a), clone(k)))
         return self._w(*a, **k)
 
     @property
@@ -2213,17 +2200,250 @@ def phase_point_axis(dev, scans, traj):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the measuring tools — the trace, the stage split, the accuracy
+# table, and the multi-LiDAR grouping
+# ---------------------------------------------------------------------------
+
+TOOL_SCANS = 16  # the trace's 10 warm-up and 6 profiled steps; the accuracy table takes the first 12
+CROSS_FRAMES = 12
+TRACE_KERNELS = ("capture_gather_kernel", "reselect_kernel", "align_kernel")  # B1-B3 on the bench step
+CROSS_BAND = 0.03  # docs/benchmarks.md:321, "run-to-run band +-0.03"
+# Each frame's float64 error against the JAX figure's (errors_f64 below).
+# Set from the largest per-frame difference measured on an NVIDIA H100
+# 80GB HBM3 at 700.00 W (2026-10-18): default 1.9e-4, rgbd 4.4e-5, intensity 5.6e-6,
+# kissicp-like 2.2e-6, edges 1.3e-6, near-far 5.3e-7.  lidar3d-ndt's and
+# dual-map's poses part from the JAX package's by up to 3.7e-3 and 3.2e-3
+# (frames 11 and 10; ndt's plane normals round apart from XLA's, ROADMAP
+# C8; dual-map's cause is not traced, C4), and get 0.01.
+CROSS_FRAME_TOL = 1e-3
+CROSS_FRAME_TOL_APART = {"lidar3d-ndt.yaml": 0.01, "extras/lidar3d-dual-map.yaml": 0.01}
+# The worst gauge-aligned error per pipeline of docs/benchmarks.md:305-334
+# (the JAX package, 12 frames, 3 m/s^2), printed beside the figures held.
+CROSS_PIPELINE_DOCS = {
+    "rgbd.yaml": 0.044, "lidar3d-ndt.yaml": 0.129, "extras/lidar3d-intensity.yaml": 0.218,
+    "lidar3d-default.yaml": 0.220, "extras/lidar3d-dual-map.yaml": 0.269, "extras/lidar3d-edges.yaml": 0.274,
+    "extras/lidar3d-kissicp-like.yaml": 0.346, "extras/lidar3d-near-far.yaml": 0.355,
+}
+# The JAX package's unchanged script on a CPU with its CPU defaults, one
+# process per pipeline (JAX_PLATFORMS=cpu python eval/cross_pipeline.py
+# --pipelines <yaml>; 2026-10-18, 8 cores, 14.4 min for the eight, each
+# process's seconds beside it): the worst error as it printed it (3
+# decimals) and the per-frame errors its stderr printed (4).  On a CPU the
+# JAX package captures every point of each probed voxel and selects in XLA
+# (``use_pallas`` and ``per_voxel_nn`` off); the port always runs the
+# algorithm the JAX package runs on a TPU (the per-voxel top-2 capture, the
+# fused align or the planar select).  Printed beside the figures held.
+CROSS_PIPELINE_JAX_XLA = {
+    "lidar3d-default.yaml": dict(  # 92 s
+        worst=0.204, errors=[0.0, 0.0031, 0.0155, 0.0508, 0.1125, 0.1611, 0.1774, 0.2044, 0.1612, 0.1065, 0.0765, 0.0779]),
+    "lidar3d-ndt.yaml": dict(  # 81 s
+        worst=0.119, errors=[0.0, 0.0412, 0.0497, 0.054, 0.079, 0.1195, 0.098, 0.0943, 0.079, 0.0574, 0.0669, 0.055]),
+    "rgbd.yaml": dict(  # 145 s
+        worst=0.046, errors=[0.0, 0.0038, 0.0099, 0.0044, 0.0093, 0.0154, 0.0327, 0.0261, 0.0314, 0.0368, 0.0456, 0.0265]),
+    "extras/lidar3d-kissicp-like.yaml": dict(  # 81 s
+        worst=0.342, errors=[0.0, 0.0026, 0.0174, 0.0532, 0.1243, 0.236, 0.2826, 0.3423, 0.294, 0.2716, 0.2567, 0.2532]),
+    "extras/lidar3d-dual-map.yaml": dict(  # 104 s
+        worst=0.212, errors=[0.0, 0.0018, 0.0175, 0.0554, 0.1146, 0.1741, 0.179, 0.2118, 0.1525, 0.1426, 0.1228, 0.1143]),
+    "extras/lidar3d-near-far.yaml": dict(  # 110 s
+        worst=0.354, errors=[0.0, 0.0, 0.03, 0.0831, 0.1623, 0.2717, 0.3544, 0.2205, 0.1496, 0.1206, 0.1037, 0.096]),
+    "extras/lidar3d-edges.yaml": dict(  # 128 s
+        worst=0.277, errors=[0.0, 0.0017, 0.0174, 0.0512, 0.1122, 0.176, 0.2261, 0.2774, 0.2367, 0.208, 0.2013, 0.211]),
+    "extras/lidar3d-intensity.yaml": dict(  # 121 s
+        worst=0.161, errors=[0.0, 0.0057, 0.0146, 0.0519, 0.1025, 0.1369, 0.1356, 0.1609, 0.0887, 0.0675, 0.0556, 0.0611]),
+}
+# The figures phase 13 (c) holds: the JAX package running the algorithm the
+# port runs (its TPU algorithm), driven as eval/cross_pipeline.py drives it:
+#     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/phase13_cpu_figures.py jax-cross <yaml>
+# which sets the knobs of that script's KNOBS table: MOLA_TPU_PALLAS=0
+# MOLA_TPU_PER_VOXEL_NN=1 (the per-voxel capture and the XLA twin of the
+# planar select) for the generic-loop pipelines, MOLA_TPU_PALLAS=1
+# MOLA_TPU_PER_VOXEL_NN=1 MOLA_TPU_PALLAS_CAPTURE=1 (the Pallas kernels in
+# interpret mode) for the fused ones ("generic" and "fused" beside each,
+# with the process's seconds, three at a time on 8 cores, 2026-10-18).  The
+# unchanged eval script with the same knobs printed the same worst and
+# per-frame float32 errors.  errors_f64: each frame's error in float64 from
+# the JAX poses (apps/cross_pipeline.gt_error_f64), free of the float32
+# metric's noise (ROADMAP C16).
+CROSS_PIPELINE_JAX = {
+    "lidar3d-default.yaml": dict(  # 289 s fused
+        worst=0.228, errors=[0.0, 0.003, 0.0154, 0.0509, 0.1124, 0.179, 0.1962, 0.2281, 0.1847, 0.1576, 0.1272, 0.1254],
+        errors_f64=[0.000000, 0.003048, 0.015385, 0.050875, 0.112413, 0.178983, 0.198157, 0.228129, 0.184678, 0.158981, 0.127070, 0.125316]),
+    "lidar3d-ndt.yaml": dict(  # 308 s generic
+        worst=0.119, errors=[0.0, 0.0412, 0.0497, 0.054, 0.079, 0.1195, 0.098, 0.0943, 0.079, 0.0574, 0.0669, 0.055],
+        errors_f64=[0.000000, 0.041246, 0.049713, 0.053985, 0.078971, 0.119452, 0.097988, 0.093143, 0.080149, 0.058233, 0.065833, 0.055159]),
+    "rgbd.yaml": dict(  # 431 s generic
+        worst=0.046, errors=[0.0, 0.0038, 0.0099, 0.0044, 0.0093, 0.0154, 0.0327, 0.0261, 0.0314, 0.0368, 0.0456, 0.0265],
+        errors_f64=[0.000000, 0.003771, 0.009871, 0.004440, 0.009310, 0.015409, 0.033086, 0.026294, 0.031547, 0.036615, 0.045674, 0.026540]),
+    "extras/lidar3d-kissicp-like.yaml": dict(  # 207 s fused
+        worst=0.336, errors=[0.0, 0.0026, 0.0175, 0.0532, 0.1243, 0.237, 0.281, 0.3364, 0.3154, 0.3077, 0.282, 0.2668],
+        errors_f64=[0.000000, 0.002558, 0.017450, 0.053198, 0.124344, 0.232202, 0.283263, 0.347447, 0.315707, 0.306223, 0.283326, 0.267005]),
+    "extras/lidar3d-dual-map.yaml": dict(  # 346 s generic
+        worst=0.268, errors=[0.0, 0.0018, 0.0175, 0.0558, 0.1179, 0.1889, 0.2229, 0.2683, 0.264, 0.254, 0.2357, 0.2309],
+        errors_f64=[0.000000, 0.001824, 0.017483, 0.055849, 0.117856, 0.188925, 0.226755, 0.266531, 0.264709, 0.254353, 0.235570, 0.230321]),
+    "extras/lidar3d-near-far.yaml": dict(  # 348 s generic
+        worst=0.385, errors=[0.0, 0.0, 0.03, 0.0831, 0.1629, 0.2672, 0.3631, 0.3798, 0.3804, 0.3711, 0.3714, 0.385],
+        errors_f64=[0.000000, 0.000000, 0.030001, 0.081875, 0.160682, 0.270597, 0.365073, 0.379677, 0.382711, 0.376661, 0.370979, 0.384091]),
+    "extras/lidar3d-edges.yaml": dict(  # 330 s generic
+        worst=0.277, errors=[0.0, 0.0017, 0.0174, 0.0512, 0.1122, 0.176, 0.2261, 0.2774, 0.2367, 0.208, 0.2013, 0.211],
+        errors_f64=[0.000000, 0.001663, 0.017383, 0.052579, 0.112158, 0.177865, 0.224236, 0.277410, 0.236089, 0.207108, 0.200796, 0.210740]),
+    "extras/lidar3d-intensity.yaml": dict(  # 356 s generic
+        worst=0.223, errors=[0.0, 0.0057, 0.0151, 0.0525, 0.1053, 0.173, 0.1845, 0.2227, 0.208, 0.1911, 0.1598, 0.1471],
+        errors_f64=[0.000000, 0.005742, 0.015064, 0.052479, 0.105266, 0.173035, 0.188808, 0.222120, 0.207779, 0.189879, 0.159143, 0.146910]),
+}
+# Phase 13 (d)'s references, made by tests/phase13_cpu_figures.py over the
+# same scans at SIZING: the port on the CPU (port-multi-lidar; no JAX in the
+# process) and the JAX package's LidarOdometry and async runtime with the
+# knobs of its TPU algorithm (jax-multi-lidar).
+MULTI_LIDAR_CPU = dict(  # 143 s on 8 cores, 0.19-0.41 s a group
+    iterations=[0, 6, 7, 23, 26, 29, 13, 25],
+    quality=[1.0, 1.0, 0.9990384578704834, 0.9952426552772522,
+             0.9923481345176697, 0.9740009903907776, 0.9971536993980408, 0.9862232804298401],
+    final_pose_gt_error=0.1834018975496292,
+)
+MULTI_LIDAR_JAX = dict(  # 126 s on 8 cores
+    iterations=[0, 6, 7, 22, 26, 25, 23, 25],
+    quality=[1.0, 1.0, 0.9990384578704834, 0.9952426552772522,
+             0.9923481345176697, 0.9740009903907776, 0.9971536993980408, 0.9862232804298401],
+    final_pose_gt_error=0.1864272654056549,
+)
+
+
+def phase_multi_lidar(dev, scans, traj):
+    """Phase 13 (d): apps/multi_lidar.py on the card over the bench scans
+    (two half-scan sensors 5 ms apart grouped by the async runtime), every
+    group formed, every frame accepted, mean quality (frames 1 on) and
+    final-pose GT error within QUALITY_SPREAD / GT_SPREAD of MULTI_LIDAR_CPU
+    and MULTI_LIDAR_JAX."""
+    from mola_lidar_odometry_tpu_torch.apps import multi_lidar as ml
+
+    r = ml.run(dev, scans, traj, SIZING)
+    q = float(np.mean(r["quality"][1:]))
+    log(f"multi-LiDAR: 2 sensors x {len(scans)} scans -> {r['groups']} groups ({r['dropped']} dropped), points per "
+        f"group {r['points']}; iterations {r['iterations']}; mean quality {q:.4f}; final-pose GT error "
+        f"{r['final_pose_gt_error']:.4f}; {1e3 * np.median(r['secs'][1:]):.1f} ms per group (median after the first)")
+    failures = []
+    if r["groups"] != len(scans) or r["dropped"]:
+        failures.append(f"{r['groups']} groups of {len(scans)} scans, {r['dropped']} dropped")
+    if not all(r["accepted"][1:]):
+        failures.append(f"frames not accepted: {[k for k, a in enumerate(r['accepted']) if not a]}")
+    for tag, ref in (("the port's CPU run", MULTI_LIDAR_CPU), ("the JAX package's CPU run", MULTI_LIDAR_JAX)):
+        q_ref = float(np.mean(ref["quality"][1:]))
+        log(f"multi-LiDAR: {tag}: iterations {ref['iterations']}; mean quality {q_ref:.4f}; final-pose GT error "
+            f"{ref['final_pose_gt_error']:.4f}")
+        if not abs(q - q_ref) <= QUALITY_SPREAD:
+            failures.append(f"mean quality {q:.4f} is more than {QUALITY_SPREAD} from {tag}'s {q_ref:.4f}")
+        if not abs(r["final_pose_gt_error"] - ref["final_pose_gt_error"]) <= GT_SPREAD:
+            failures.append(f"final-pose GT error {r['final_pose_gt_error']:.4f} is more than {GT_SPREAD} from "
+                            f"{tag}'s {ref['final_pose_gt_error']:.4f}")
+    if failures:
+        raise AssertionError("multi-LiDAR: " + "; ".join(failures))
+
+
+def phase_tools(dev, scans, traj):
+    """Phase 13 (see the module docstring): (a) apps/trace_step.py on the
+    bench configuration, (b) apps/profile_stages.py at B = 1 and B = 8, (c)
+    apps/cross_pipeline.py over the eight 3D pipelines held to
+    CROSS_PIPELINE_JAX, (d) the multi-LiDAR grouping.  Returns each
+    kernel's launches in this phase."""
+    import tempfile
+
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.apps import bench_sequence as bs
+    from mola_lidar_odometry_tpu_torch.apps import cross_pipeline as cp, profile_stages as ps, trace_step as ts
+
+    t_phase = time.time()
+    wrappers = ps.kernel_wrappers()
+    names = {"B1": "capture_planar", "B2": "capture_planar_reselect", "B3": "align_fused", "B4": "nn_select"}
+    for w in wrappers.values():
+        w.launches = 0
+
+    # (a) the trace: 10 warm-up steps, 6 profiled, B = 8
+    with tempfile.TemporaryDirectory() as out:
+        targs = ts.build_parser().parse_args(["--out", out])
+        rep = ts.run(targs, dev, (scans, traj))
+    rows, steps = rep["rows"], rep["steps"]
+    log(f"tools: trace: {steps} profiled steps of lidar3d-default at B={targs.batch} after {targs.warmup} warm-up "
+        f"steps: device {rep['total_us'] / 1e3 / steps:.3f} ms/step in {rep['device_ops'] / steps:g} device ops/step; "
+        f"busy union {rep['busy_us'] / 1e3:.3f} ms of the {rep['wall_ms']:.3f} ms profiled window "
+        f"({100 * rep['busy_us'] / 1e3 / rep['wall_ms']:.1f}% busy), {rep['wall_ms'] / steps:.3f} ms/step profiled "
+        f"against {rep['plain_step_ms']:.3f} ms for the last warm-up step unprofiled")
+    for name, us, n in rows[:15]:
+        sites = "; ".join(f"{s} {s_us / 1e3 / steps:.3f}" for s, s_us in rep["sites"][name][:2] if s)
+        log(f"tools: trace:   {us / 1e3 / steps:8.3f} ms/step {100 * us / rep['total_us']:5.1f}% x{n / steps:g} "
+            f"{name[:80]} <- {sites or '(no Python frame)'}")
+    for (pid, tid), g in rep["lines"].items():
+        log(f"tools: trace: device line {pid}/{tid}: {g['events']} events, span {g['span'] / 1e3:.3f} ms, busy "
+            f"{g['busy'] / 1e3:.3f} ms, idle {g['idle'] / 1e3:.3f} ms ({100 * g['idle'] / g['span']:.1f}%), "
+            f"idle/step {g['idle'] / 1e3 / steps:.3f} ms; largest gaps: "
+            + ", ".join(f"{gap / 1e3:.3f} ms before {nxt[:60]}" for gap, _, nxt in g["gaps"][:5]))
+        log(f"tools: trace: device line {pid}/{tid}: idle by the op that follows: "
+            + ", ".join(f"{nxt[:60]} {gap / 1e3:.3f} ms" for nxt, gap in g["idle_by_next"][:5]))
+        log(f"tools: trace: device line {pid}/{tid}: idle by the source that launched the op that follows: "
+            + ", ".join(f"{site} {gap / 1e3:.3f} ms" for site, gap in g.get("idle_by_next_site", [])[:8]))
+    missing = [k for k in TRACE_KERNELS if not any(k in r[0] for r in rows)]
+    if missing:
+        raise AssertionError(f"tools: trace: {missing} not among the aggregated device events")
+    for k in TRACE_KERNELS:
+        row = next(r for r in rows if k in r[0])
+        log(f"tools: trace: {k}: {row[1] / 1e3 / steps:.4f} ms/step x{row[2] / steps:g}, sites "
+            + "; ".join(s for s, _ in rep["sites"][row[0]][:2]))
+
+    # (b) the stage split at B = 1 and B = 8
+    for b in (1, 8):
+        t1 = time.time()
+        out = io.StringIO()
+        ps.run(ps.build_parser().parse_args(["--batch", str(b)]), dev, out=out)
+        for line in out.getvalue().splitlines():
+            log(f"tools: stages B={b}: {line}")
+        torch.cuda.empty_cache()
+        log(f"tools: stages B={b}: {time.time() - t1:.1f} s")
+
+    # (c) the accuracy table over the first 12 scans
+    sub, tr = scans[:CROSS_FRAMES], bs.head(traj, CROSS_FRAMES)
+    intens = bs.scan_intensities(sub)
+    failures = []
+    for name in cp.PIPELINES:
+        r = cp.run_pipeline(os.path.join(cp.ROOT, name), sub, tr, intens, cp.CAPS, dev)
+        torch.cuda.empty_cache()
+        ref = CROSS_PIPELINE_JAX[name]["worst"]
+        log(f"tools: cross {name}: worst {r['worst']:.4f} (JAX, the same algorithm {ref:.4f}, band {CROSS_BAND}; JAX's "
+            f"CPU algorithm {CROSS_PIPELINE_JAX_XLA[name]['worst']:.4f}; docs {CROSS_PIPELINE_DOCS[name]:.3f}); "
+            f"float64 metric {r['worst_f64']:.4f}; errors {[round(e, 4) for e in r['errors']]}; "
+            f"iterations {r['iterations']}; quality {[round(q, 3) for q in r['quality']]}; "
+            f"{np.mean(r['secs'][1:]):.3f} s/frame after frame 0")
+        if not abs(r["worst"] - ref) <= CROSS_BAND:
+            failures.append(f"{name} worst {r['worst']:.4f} outside the {CROSS_BAND} band of {ref:.4f}")
+        d64 = np.abs(np.subtract(r["errors_f64"], CROSS_PIPELINE_JAX[name]["errors_f64"]))
+        tol = CROSS_FRAME_TOL_APART.get(name, CROSS_FRAME_TOL)
+        log(f"tools: cross {name}: float64 errors {[round(e, 4) for e in r['errors_f64']]}; largest per-frame "
+            f"difference from JAX's {d64.max():.2e} at frame {int(d64.argmax())} (tolerance {tol})")
+        if not d64.max() <= tol:
+            failures.append(f"{name} float64 errors of frames {np.flatnonzero(d64 > tol).tolist()} more than "
+                            f"{tol} from JAX's")
+    if failures:
+        raise AssertionError("tools: cross-pipeline: " + "; ".join(failures))
+
+    # (d) the multi-LiDAR grouping over the 8 scans of phases 4-12
+    phase_multi_lidar(dev, scans[:N_SCANS], bs.head(traj, N_SCANS))
+    launches = {names[k]: w.launches for k, w in wrappers.items()}
+    log(f"tools: launches in phase 13 {launches}; phase 13 took {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def host_fields(out) -> dict:
     """A StepOutput's fields on the host as numpy arrays."""
     return {f: v.cpu().numpy() for f, v in zip(out._fields, out)}
 
 
-def phase_paths(dev, recs):
-    """Phases 4-11 over the bench's simulated sequence (and lidar2d's 2D
-    scans); fills ``launches`` of every record with the sum over them."""
-    t0 = time.time()
-    scans, traj = bench_scans(N_SCANS)
-    log(f"main: simulated {N_SCANS} scans of {len(scans[0][0])} rays in {time.time() - t0:.1f} s (host)")
+def phase_paths(dev, recs, seq_scans, seq_traj):
+    """Phases 4-13: phases 4-12 over the first N_SCANS of the bench's
+    simulated sequence ``seq_scans`` (and lidar2d's 2D scans), phase 13 over
+    all of it; fills ``launches`` of every record with the sum over them."""
+    from mola_lidar_odometry_tpu_torch.apps import bench_sequence as bs
+
+    scans, traj = seq_scans[:N_SCANS], bs.head(seq_traj, N_SCANS)
     phase_sizing(scans)
     _, main_l, main_outs, _ = run_fleet(
         dev, recs, "main", "lidar3d-default.yaml", SIZING, scans, traj, dict(MAIN_GUARDS, kernels=MAIN_KERNELS),
@@ -2247,12 +2467,26 @@ def phase_paths(dev, recs):
     l10 = phase_surface(dev, recs, scans, traj)
     l11 = phase_complete(dev, recs, scans, traj)
     l12 = phase_point_axis(dev, scans, traj)
+    l13 = phase_tools(dev, seq_scans, seq_traj)
     for r in recs:
-        r["launches"] = sum(ls.get(r["name"], 0) for ls in (main_l, dual_l, host_l, ndt_l, extra_l, l9, l10, l11, l12))
+        r["launches"] = sum(ls.get(r["name"], 0)
+                            for ls in (main_l, dual_l, host_l, ndt_l, extra_l, l9, l10, l11, l12, l13))
         del r["wrapper"]
     never = [r["name"] for r in recs if r["launches"] <= 0]
     if never:
         raise AssertionError(f"kernels never launched on any path: {never}")
+
+
+def simulate(n: int):
+    """The first ``n`` scans of the bench's sequence (apps/bench_sequence.py),
+    simulated by one spawned process per CPU core."""
+    from mola_lidar_odometry_tpu_torch.apps import bench_sequence as bs
+
+    t0 = time.time()
+    scans, traj = bs.gen_scans(n)
+    log(f"main: simulated {n} scans of {len(scans[0][0])} rays in {time.time() - t0:.1f} s (host, "
+        f"{min(n, os.cpu_count() or 1)} processes)")
+    return scans, traj
 
 
 def main():
@@ -2262,17 +2496,21 @@ def main():
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on the GPU")
     ap.add_argument("--only-point-axis", action="store_true", help="phases 1, 2 and 12 only (no kernels line)")
+    ap.add_argument("--only-tools", action="store_true", help="phases 1, 2 and 13 only (no kernels line)")
     args = ap.parse_args()
     phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    if args.only_point_axis:
-        scans, traj = bench_scans(POINT_SCANS)
-        launches = phase_point_axis("cuda", scans, traj)
-        never = [k for k, v in launches.items() if v <= 0]
+    if args.only_point_axis or args.only_tools:
+        if args.only_point_axis:
+            launches = phase_point_axis("cuda", *simulate(POINT_SCANS))
+            never = [k for k, v in launches.items() if v <= 0]
+        else:
+            launches = phase_tools("cuda", *simulate(TOOL_SCANS))
+            never = [k for k in MAIN_KERNELS + DUALMAP_KERNELS if launches.get(k, 0) <= 0]
         if never:
-            raise AssertionError(f"kernels never launched in the point axis's cells: {never}")
+            raise AssertionError(f"kernels never launched in the phase: {never}")
         print(card_line(), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -2281,7 +2519,7 @@ def main():
     recs = phase_kernels("cuda")
     phase_kernel_windows("cuda")
     recs.append(phase_kernel_match("cuda"))
-    phase_paths("cuda", recs)
+    phase_paths("cuda", recs, *simulate(TOOL_SCANS))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}), flush=True)

@@ -143,6 +143,7 @@ def _table(expr: Expr, env: Dict[str, object], B: int, maxit: int, device) -> to
 def _align_fused_call(cfg, maps, layers, init_pose: Pose, prior: PosePrior, env, budget) -> IcpResult:
     mc = cfg.matchers[0]
     xyz, valid = layers[mc.local_layer]
+    xyz = xyz.contiguous()  # kernel B3 reads the points in place; a decimation's output is a strided view
     m0 = maps[mc.global_layer]
     B, dev = xyz.shape[0], xyz.device
     maxit = cfg.max_iterations

@@ -36,7 +36,8 @@ def test_every_port_module_is_listed():
         "utils.profiler", "ops.ndt", "ops.occupancy", "utils.mrpt_io", "utils.native", "utils.rosbag2",
         "utils.mcap", "utils.icp_log", "utils.viz", "utils.live_viz", "apps.datasets", "apps.cli", "apps.convert",
         "apps.launcher", "apps.icplog_viewer", "apps.ros2_bridge", "oracle", "apps.fleet_eval",
-        "parallel.fleet_probe", "parallel.point_axis", "parallel.dryrun",
+        "parallel.fleet_probe", "parallel.point_axis", "parallel.dryrun", "apps.bench_sequence", "apps.trace_step",
+        "apps.profile_stages", "apps.cross_pipeline", "apps.multi_lidar", "utils.tree",
     ):
         assert f"{port.__name__}.{expected}" in mods
 
