@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only-point-axis    # phases 1, 2 and 12 (the four-card NCCL run)
     python3 chip_smoke.py --only-tools         # phases 1, 2 and 13
+    python3 chip_smoke.py --only-full-voxel    # phases 1, 2 and the full-voxel parts of 3, 11 and 13 (c)
 
 Phases, one line of numbers each:
 
@@ -38,7 +39,12 @@ Phases, one line of numbers each:
                B1 and B2 bit for bit at the windows past 32 points the
                fused path admits (K = 30 at stride 32, a full window; K = 64
                and 126 at stride 128), on a map filled until the probed
-               voxels hold K points, each time beside its bound;
+               voxels hold K points, each time beside its bound.  Last B4
+               bit for bit at the full-voxel widths (per_voxel_nn off:
+               every point of each probed voxel, C = P*K): C = 160 over
+               lidar3d-default's 8 x 3072 ICP layer (8 probes, K = 20),
+               C = 540 and 270 over dual-map's two layers (27 probes, K =
+               20 and 10), each timed beside its plain twin and its bound;
   4. main    — steps the B=8 fleet of the lidar3d-default pipeline over the
                first 8 scans of the bench's simulated KITTI-like sequence
                (64 x 2048 rays) on the kernels, with the bench's round-5
@@ -152,9 +158,15 @@ Phases, one line of numbers each:
                generic loop, B4), and ROADMAP C6's paths on the generic
                loop: the no-motion-model ICP block (Horn, then
                Gauss-Newton), Anderson acceleration of depth 3 and a
-               one-to-one matcher.  Each is held to the JAX package's CPU
-               figures (K = 64 and 200 as phases 7-8 are, C6's paths to the
-               spreads alone; collision drops to its share),
+               one-to-one matcher; and the full-voxel capture (the JAX
+               package's algorithm on every backend but a TPU:
+               per_voxel_nn off, the generic loop on B4 at C = P*K) on
+               lidar3d-default and on lidar3d-dual-map, where B1-B3 must
+               not launch (scans/s, device ops and B4 launches a step,
+               peak memory printed).  Each is held to the JAX package's CPU
+               figures (K = 64, 200 and the full-voxel paths as phases 7-8
+               are, C6's paths to the spreads alone; collision drops to
+               its share),
                its recorded kernel calls against their twins, its host
                syncs counted by call site.  Then the port's float64 oracle
                on the host beside the port's lidar3d-default at B=1: the
@@ -208,7 +220,9 @@ Phases, one line of numbers each:
                CROSS_FRAME_TOL_APART) of the same figure from the JAX
                poses; printed beside the script at its CPU
                defaults (CROSS_PIPELINE_JAX_XLA) and docs/benchmarks.md's
-               figures.  (d) the multi-LiDAR grouping of
+               figures.  Then each pipeline again with per_voxel_nn off,
+               held the same way to CROSS_PIPELINE_JAX_XLA, the JAX
+               package's CPU algorithm.  (d) the multi-LiDAR grouping of
                utils/runtime.py::AsyncLidarOdometry: lidar3d-default with
                MOLA_LIDAR_COUNT=2, each of the 8 scans
                split by azimuth half into two labelled sensors stamped 5 ms
@@ -229,7 +243,6 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import dataclasses
 import io
 import json
 import os
@@ -326,11 +339,18 @@ JAX_FIGURES = {
                   quality=[1.0, 1.0, 0.9990389347076416, 0.9952448606491089, 0.9923481345176697, 0.9735067486763, 0.9971536993980408, 0.9862232804298401]),
     "one-to-one": dict(iterations=[0, 7, 6, 24, 6, 34, 10, 23], final_pose_gt_error=0.20787465717845793,
                   quality=[1.0, 0.9022988677024841, 0.9481018781661987, 0.9343794584274292, 0.9301769733428955, 0.8901734352111816, 0.919829249382019, 0.924465537071228]),
+    # the full-voxel tags at the JAX package's CPU defaults (MOLA_TPU_PALLAS=0 MOLA_TPU_PER_VOXEL_NN=0;
+    # the same command, 4.4 min for the two on 8 cores)
+    "full voxel": dict(iterations=[0, 5, 5, 23, 25, 27, 25, 23], final_pose_gt_error=0.1801386427258114,
+                  quality=[1.0, 1.0, 0.9990389347076416, 0.9952448606491089, 0.9923481345176697, 0.97398841381073, 0.9971536993980408, 0.9862232804298401]),
+    "full voxel dual-map": dict(iterations=[0, 5, 7, 6, 8, 15, 12, 14], final_pose_gt_error=0.17705749472656623,
+                  quality=[1.0, 0.9995725154876709, 0.9994295239448547, 0.9964488744735718, 0.9944633841514587, 0.9827266335487366, 0.9971643090248108, 0.9905969500541687]),
 }
 # Every configuration of COMPLETE sizes as lidar3d-default does: the JAX
 # package's utils/capacity.py derives SIZING for each (the command above
 # prints them), and phase 11 holds the port's derivation to it.
-COMPLETE_SIZING = {tag: SIZING for tag in ("k64", "k200 dedup", "no motion model", "anderson", "one-to-one")}
+COMPLETE_SIZING = dict({tag: SIZING for tag in ("k64", "k200 dedup", "no motion model", "anderson", "one-to-one",
+                                                 "full voxel")}, **{"full voxel dual-map": DUALMAP_SIZING})
 # Their collision drops against the points offered to the map over the 8
 # scans (the same command): a 128- or 256-lane window makes each bucket a
 # single way, so at the derived 65536 slots the deep maps drop ~1.1-1.2% of
@@ -338,7 +358,8 @@ COMPLETE_SIZING = {tag: SIZING for tag in ("k64", "k200 dedup", "no motion model
 # share plus DROP_SPREAD, and a path that drops nothing in the JAX package
 # to the other paths' 0.1%.
 COMPLETE_DROPS = {"k64": (868, 73897), "k200 dedup": (832, 73899), "no motion model": (0, 73893),
-                  "anderson": (0, 73899), "one-to-one": (0, 73898)}
+                  "anderson": (0, 73899), "one-to-one": (0, 73898), "full voxel": (0, 73899),
+                  "full voxel dual-map": (0, 74089)}
 DROP_SPREAD = 0.002
 # Phase 11 (c): the JAX package's LidarOdometry (auto-sized, the TPU
 # algorithm) beside its float64 oracle over the 8 bench scans, the three
@@ -396,9 +417,14 @@ GT_SPREAD = 0.01
 # min_distance_between_points 0.2 (a 256-lane window with the dedup, the
 # generic loop on B4), and ROADMAP C6's paths, all on the generic loop: the
 # no-motion-model ICP block (Horn, then Gauss-Newton) for every frame,
-# Anderson acceleration of depth 3, and a one-to-one matcher.
-COMPLETE = ("k64", "k200 dedup", "no motion model", "anderson", "one-to-one")
+# Anderson acceleration of depth 3, and a one-to-one matcher.  Last the
+# full-voxel capture (the JAX package's algorithm on every backend but a
+# TPU: per_voxel_nn off, every point of each probed voxel, the generic loop
+# on B4) on lidar3d-default (8 probes, C = 160) and on lidar3d-dual-map (27
+# probes, C = 540 and 270).
+COMPLETE = ("k64", "k200 dedup", "no motion model", "anderson", "one-to-one", "full voxel", "full voxel dual-map")
 COMPLETE_ANDERSON = {"anderson": 3}  # the JAX package's MOLA_TPU_ICP_ANDERSON
+COMPLETE_FULL_VOXEL = ("full voxel", "full voxel dual-map")  # the JAX package's MOLA_TPU_PER_VOXEL_NN=0
 
 
 def complete_cfg(tag: str, tmp: str, load_yaml_file) -> dict:
@@ -406,8 +432,11 @@ def complete_cfg(tag: str, tmp: str, load_yaml_file) -> dict:
     ``load_yaml_file`` (either package's): a copy of the pipeline written
     into ``tmp`` where a key changes (the repo's pipelines stay as they
     are), the environment where the pipeline reads one, and the ICP block
-    edited in the tree for ROADMAP C6's paths."""
+    edited in the tree for ROADMAP C6's paths.  The full-voxel tags load
+    their pipeline as it is (the knob is not in the YAML)."""
     default = os.path.join(HERE, "pipelines", "lidar3d-default.yaml")
+    if tag == "full voxel dual-map":
+        return load_yaml_file(os.path.join(HERE, "pipelines", DUALMAP_PIPE), env={})
     if tag == "k64":
         return load_yaml_file(default, env={"MOLA_LOCALMAP_MAX_POINTS_PER_VOXEL": "64"})
     if tag == "k200 dedup":
@@ -428,7 +457,7 @@ def complete_cfg(tag: str, tmp: str, load_yaml_file) -> dict:
             os.path.join(HERE, "pipelines", "extras", "icp-pipeline_no_motion_model.yaml"), env={})
     elif tag == "one-to-one":
         cfg["icp_settings_with_vel"]["matchers"][0]["params"]["allowMatchAlreadyMatchedGlobalPoints"] = False
-    elif tag != "anderson":
+    elif tag not in ("anderson", "full voxel"):
         raise ValueError(tag)
     return cfg
 
@@ -1054,6 +1083,67 @@ def phase_kernel_match(dev):
                 plain_ms=pms, bound_ms=bd[0], bound_by=bd[1], library_ms=None, wrapper=pm.nn_select)
 
 
+FULL_VOXEL_FILL = 20  # extra inserts of the last frame, so the probed voxels hold up to K points
+
+
+def phase_kernel_match_full_voxel(dev, rec=None):
+    """Kernel B4 against its plain twin on the card, bit for bit, at the
+    full-voxel widths (``per_voxel_nn`` off: every point of each probed
+    voxel is a candidate, ``C = P*K``): lidar3d-default's 3072-point ICP
+    layer at 8 probes of a K = 20 map (C = 160), and lidar3d-dual-map's two
+    layers at 27 probes (K = 20 and 10: C = 540 over 3072 points, 270 over
+    6656), on ``kernel_inputs`` maps filled until the probed voxels hold up
+    to K points.  Each shape selects at an entry pose off the answer and at
+    the answer, and is timed as phase 3 times B4 (CUDA-graph replays),
+    beside its plain twin's time and its bound.  Raises ``rec``'s
+    ``max_abs_err`` to the largest difference seen."""
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.ops import pallas_match as pm, se3, voxel_hash as vh
+
+    caps = DUALMAP_SIZING["layer_capacities"]
+    card = torch.cuda.get_device_name(0)
+    shapes = [  # (label, map K, N, probes)
+        ("lidar3d-default: decimated_for_icp -> localmap", 20, SIZING["layer_capacities"]["decimated_for_icp"], 8),
+        ("dual-map: decimated_for_icp -> localmap", 20, caps["decimated_for_icp"], 27),
+        ("dual-map: decimated_for_icp_near -> localmap_far", 10, caps["decimated_for_icp_near"], 27),
+    ]
+    for label, K, N, P in shapes:
+        m, local, _ = kernel_inputs(dev, seed=K + P, n_query=N, slots=DUALMAP_SIZING["map_slots"], K=K,
+                                    fill=FULL_VOXEL_FILL)
+        local = local.clone()
+        local[:, ::31, 2] += 30.0  # points far above the map: no candidate at all
+        xi = torch.tensor([[0.06 + 0.01 * b, -0.04, 0.02, 0.002, -0.003, 0.006] for b in range(BATCH)], device=dev)
+        q_entry = se3.transform(se3.se3_exp(xi), local).contiguous()
+        planar = pm.to_planar(vh.capture(m, q_entry, P, per_voxel_nn=False))
+        C = planar.mask.shape[-1]
+        if C != P * K or planar.x.shape != (BATCH, N, C):
+            raise AssertionError(f"B4 full voxel {label}: planes {tuple(planar.x.shape)}, expected {(BATCH, N, P * K)}")
+        err, n_none = 0.0, 0
+        for queries in (q_entry, local.contiguous()):
+            got, ref = pm.nn_select(planar, queries), pm.nn_select_plain(planar, queries)
+            torch.cuda.synchronize()
+            for g, r, name in zip(got, ref, ("target", "d2min")):
+                if not torch.equal(g + 0.0, r + 0.0):
+                    raise AssertionError(f"B4 full voxel {label}: {name} differs from its plain twin in "
+                                         f"{int((g != r).sum())} elements")
+            n_none += int((got[1] > 1e37).sum())
+            err = max(err, max_err(got, ref))
+        live = planar.mask.sum(-1)
+        if n_none == 0 or int(live.max()) <= 2 * P:
+            raise AssertionError(f"B4 full voxel {label}: the inputs need queries with no candidate and rows with "
+                                 f"more candidates than the per-voxel view keeps ({int(live.max())})")
+        ms = cuda_graph_ms(lambda: pm.nn_select(planar, q_entry), 20)
+        pms = cuda_ms(lambda: pm.nn_select_plain(planar, q_entry), 5, 1)
+        bd = bound(BATCH * N * (16 * C + 12 + 16), BATCH * N * C * 9)
+        if rec is not None:
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        log(f"kernels: B4 full voxel bit-exact vs plain on {BATCH}x{N}x{C} ({label}, {P} probes x K={K}; "
+            f"max |d| {err}); {n_none} selects found no candidate; live candidates per query mean "
+            f"{float(live.float().mean()):.1f}, max {int(live.max())}; {ms:.4f} ms (plain {pms:.3f} ms, bound "
+            f"{bd[0]:.4f} ms by {bd[1]}, {100 * bd[0] / ms:.1f}% of it) on {card}")
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the two paths — the B=8 fleet over the bench's scans
 # ---------------------------------------------------------------------------
@@ -1081,8 +1171,7 @@ def profile_step(fstep, carry, scan):
     return carry, out
 
 
-def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, count_syncs=False, params=None,
-              spec_edit=None):
+def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, count_syncs=False, params=None):
     """Step the B=8 fleet of ``pipeline`` (a path under pipelines/, or a
     loaded YAML tree) through ``scans`` on the kernels
     with every launch count set to 0 just before and read just after;
@@ -1092,8 +1181,8 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, 
     host syncs torch flags (printed by call site) and records its kernel
     calls (and is left out of the rate); after the counts are read, each
     recorded call is held against its plain twin at this path's own shapes.
-    ``params`` are set in the pipeline's ``params`` block; ``spec_edit``
-    maps the built spec to the one stepped."""
+    ``params`` are set in the pipeline's ``params`` block; ``sizing`` may
+    also hold spec_from_yaml's ICP overrides."""
     import torch
 
     from mola_lidar_odometry_tpu_torch.models import step as step_mod
@@ -1105,8 +1194,6 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, 
     cfg = pipeline if isinstance(pipeline, dict) else load_yaml_file(os.path.join(HERE, "pipelines", pipeline), env={})
     cfg["params"].update(params or {})
     spec = spec_from_yaml(cfg, kf_ring_capacity=256, **sizing)
-    if spec_edit is not None:
-        spec = spec_edit(spec)
     fstep = pb.make_fleet_step(spec)
     seq = [pb.pack_scans(spec, [s] * BATCH, [traj.stamps[k]] * BATCH, device=dev) for k, s in enumerate(scans)]
     carry = pb.init_fleet_carry(spec, BATCH, device=dev)
@@ -1134,6 +1221,9 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, 
     outs.append(out)
     launches = {r["name"]: r["wrapper"].launches for r in recs}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the recorded calls' inputs, cloned, stay on the card until they are checked
+    held_gb = sum(t.numel() * t.element_size() for c in calls for t in _tensors(c[1:]) if t.is_cuda) / 1e9
+    LAST_PROFILE.update(peak_gb=peak_gb, recorded_gb=held_gb)
 
     q = torch.stack([o.quality for o in outs]).cpu().numpy()
     accepted = torch.stack([o.accepted for o in outs]).cpu().numpy()
@@ -1154,7 +1244,8 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, 
         f"map layer max {int(nmap.max())}/{map_cap}; collision drops {drops}/{int(nmap.sum())} "
         f"over {len(map_names)} map(s)")
     log(f"{tag}: {sps:.2f} scans/s over frames {warm}..{len(secs) - 1} (B={BATCH}) on {card}; "
-        f"peak device memory {peak_gb:.3f} GB")
+        f"peak device memory {peak_gb:.3f} GB"
+        + (f" ({held_gb:.3f} GB of it the copies of step {n_scans - 2}'s recorded kernel calls)" if held_gb else ""))
     log(f"{tag}: launches " + ", ".join(f"{k}={v} ({v / n_scans:.2f}/step)" for k, v in launches.items()))
     if syncs is not None:
         log(f"{tag}: host syncs flagged by torch in step {n_scans - 2}: {syncs} (that step is left out of the rate); "
@@ -1924,14 +2015,15 @@ ORACLE_MARGIN = dict(pose=0.01, ate_share=0.005, gt=1e-6)
 FLEET_SPLIT_SCANS = 4
 
 
-def phase_complete(dev, recs, scans, traj):
+def phase_complete(dev, recs, scans, traj, tags=COMPLETE, rest=True):
     """Phase 11: (a)-(b) lidar3d-default at K = 64 and at K = 200 with the
     dedup, then ROADMAP C6's paths, each at B = 8 over the 8 bench scans at
     the sizes the port derives (equal to the JAX package's), held to the JAX
     package's CPU figures as phases 7-8 are, its recorded kernel calls held
     against their twins and its host syncs counted by call site; (c) the
     port's float64 oracle beside the port at B = 1; (d) the fleet split over
-    two worker processes.  Returns each kernel's launches in this phase."""
+    two worker processes.  ``tags`` are the paths of (a)-(b) run, (c) and
+    (d) run with ``rest``.  Returns each kernel's launches in this phase."""
     import tempfile
 
     from mola_lidar_odometry_tpu_torch.models.spec import spec_from_yaml
@@ -1942,7 +2034,7 @@ def phase_complete(dev, recs, scans, traj):
     launches = collections.Counter()
     x0, t0, _, v0 = scans[0]
     max_pts = max(int(v.sum()) for _, _, _, v in scans)
-    for tag in COMPLETE:
+    for tag in tags:
         with tempfile.TemporaryDirectory() as tmp:
             cfg = complete_cfg(tag, tmp, load_yaml_file)
         names = ("raw_capacity", "map_slots", "layer_capacities", "insert_budgets")
@@ -1950,35 +2042,54 @@ def phase_complete(dev, recs, scans, traj):
                                                    known_max_points=max_pts)))
         if sizing != COMPLETE_SIZING[tag]:
             raise AssertionError(f"{tag}: the port derives {sizing}, the JAX package {COMPLETE_SIZING[tag]}")
-        depth = COMPLETE_ANDERSON.get(tag, 0)
-
-        def edit(spec, depth=depth):
-            if not depth:
-                return spec
-            return dataclasses.replace(spec, icp_with_vel=dataclasses.replace(spec.icp_with_vel, anderson_m=depth),
-                                       icp_without_vel=dataclasses.replace(spec.icp_without_vel, anderson_m=depth))
-
+        # the ICP knobs go through spec_from_yaml's overrides, as a user's call does
+        knobs = dict(per_voxel_nn=False) if tag in COMPLETE_FULL_VOXEL else {}
+        if tag in COMPLETE_ANDERSON:
+            knobs["anderson_m"] = COMPLETE_ANDERSON[tag]
         drops, offered = COMPLETE_DROPS[tag]
         # (a) and (b) as phase 4 is guarded, and within the spreads of the
         # JAX figures; C6's paths within the spreads (their own GT errors
         # sit at 0.02-0.21, so the bench's 0.20 is no bound on them)
-        guards = reference_guards(tag) if tag in ("k64", "k200 dedup") else spread_guards(tag)
+        guards = reference_guards(tag) if tag in ("k64", "k200 dedup") + COMPLETE_FULL_VOXEL else spread_guards(tag)
         guards["max_drop_share"] = max(1e-3, drops / offered + DROP_SPREAD) if drops else 1e-3
         kernels = COMPLETE_KERNELS.get(tag, DUALMAP_KERNELS)
-        _, here, _, carry = run_fleet(dev, recs, tag, cfg, sizing, scans, traj, dict(guards, kernels=kernels),
-                                      ("localmap",), count_syncs=True, spec_edit=edit)
+        map_names = tuple(d.name for d in spec_from_yaml(cfg).map_layers)
+        sps, here, _, carry = run_fleet(dev, recs, tag, cfg, dict(sizing, **knobs), scans, traj,
+                                        dict(guards, kernels=kernels), map_names, count_syncs=True)
         m = carry.maps["localmap"]
-        icp = edit(spec_from_yaml(cfg)).icp_with_vel
+        spec = spec_from_yaml(cfg, **knobs)
+        icp = spec.icp_with_vel
         log(f"{tag}: map K={m.K} stride {m.stride}, min_distance_between_points "
-            f"{spec_from_yaml(cfg).map_layers[0].min_distance_between_points}; ICP: Horn "
+            f"{spec.map_layers[0].min_distance_between_points}; ICP: Horn "
             f"{icp.horn is not None}, Anderson depth {icp.anderson_m}, one-to-one "
-            f"{not icp.matchers[0].allow_match_already_matched}; sized {json.dumps(sizing)} (= the JAX package's)")
+            f"{not icp.matchers[0].allow_match_already_matched}, per_voxel_nn {icp.per_voxel_nn}, "
+            f"{icp.nn_neighbors} probes; sized {json.dumps(sizing)} (= the JAX package's)")
         print_reference(tag, guards)
+        if tag in COMPLETE_FULL_VOXEL:
+            full_voxel_summary(tag, spec, carry, sps, here)
         launches.update(here)
-    launches.update(phase_oracle(dev, recs, scans, traj))
-    phase_fleet_split(dev, scans, traj)
+    if rest:
+        launches.update(phase_oracle(dev, recs, scans, traj))
+        phase_fleet_split(dev, scans, traj)
     log(f"complete: phase 11 took {time.time() - t_phase:.1f} s")
     return launches
+
+
+def full_voxel_summary(tag, spec, carry, sps, launches):
+    """A full-voxel path's figures (its candidate widths, scans/s, device ops
+    and B4 launches a step, peak memory); B1-B3 must not have launched."""
+    import torch
+
+    widths = [f"{mc.global_layer} C={spec.icp_with_vel.nn_neighbors * carry.maps[mc.global_layer].K}"
+              for mc in spec.icp_with_vel.matchers]
+    log(f"{tag}: full voxel ({', '.join(widths)}): {sps:.2f} scans/s (B={BATCH}), {LAST_PROFILE['device_ops']} "
+        f"device ops in the profiled last step, B4 {launches['nn_select'] / N_SCANS:.2f} launches a step, "
+        f"max_memory_allocated {LAST_PROFILE['peak_gb']:.3f} GB over the steps, "
+        f"{LAST_PROFILE['peak_gb'] - LAST_PROFILE['recorded_gb']:.3f} GB without the recorded calls' copies, "
+        f"on {torch.cuda.get_device_name(0)}")
+    fused = {k: launches[k] for k in MAIN_KERNELS if launches[k]}
+    if fused:
+        raise AssertionError(f"{tag}: the full-voxel path launched {fused}; it must run the generic loop alone")
 
 
 def phase_oracle(dev, recs, scans, traj):
@@ -2218,6 +2329,24 @@ CROSS_BAND = 0.03  # docs/benchmarks.md:321, "run-to-run band +-0.03"
 # C8; dual-map's cause is not traced, C4), and get 0.01.
 CROSS_FRAME_TOL = 1e-3
 CROSS_FRAME_TOL_APART = {"lidar3d-ndt.yaml": 0.01, "extras/lidar3d-dual-map.yaml": 0.01}
+# Phase 13 (c) without the per-voxel view holds CROSS_PIPELINE_JAX_XLA to the
+# same tolerances, save the frames named here.  lidar3d-dual-map's frame 5
+# takes 24 iterations in the port (on the card and on a CPU alike) and 13 in
+# the JAX package; the JAX package stepped from the port's own carry after
+# frame 4 (7.0e-8 m apart, C4's rounding) takes 24 too and lands 1.9e-7 m
+# from the port, while the port stepped from the JAX package's carry agrees
+# with it to 1.5e-8 m and to the iteration at every frame:
+#     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/phase13_cpu_figures.py jax-fork extras/lidar3d-dual-map.yaml --frames 6
+# So the reference itself forks there, and frames 8-11 inherit the fork:
+# measured 1.1e-2 to 1.8e-2 apart on an NVIDIA H100 80GB HBM3 at 700.00 W.
+# lidar3d-default's frame 11 forks the same way (41 iterations against 38;
+# the JAX package from the port's carry, 1.8e-6 m apart, takes 41 and lands
+# 1.2e-7 m from the port; from the JAX carry the port takes 38, 3.7e-9 m
+# from it; `jax-fork lidar3d-default.yaml --frames 12`) and read 3.0e-3.
+CROSS_FULL_VOXEL_FRAMES_APART = {
+    "lidar3d-default.yaml": {11: 0.01},
+    "extras/lidar3d-dual-map.yaml": {8: 0.03, 9: 0.03, 10: 0.03, 11: 0.03},
+}
 # The worst gauge-aligned error per pipeline of docs/benchmarks.md:305-334
 # (the JAX package, 12 frames, 3 m/s^2), printed beside the figures held.
 CROSS_PIPELINE_DOCS = {
@@ -2231,26 +2360,38 @@ CROSS_PIPELINE_DOCS = {
 # process's seconds beside it): the worst error as it printed it (3
 # decimals) and the per-frame errors its stderr printed (4).  On a CPU the
 # JAX package captures every point of each probed voxel and selects in XLA
-# (``use_pallas`` and ``per_voxel_nn`` off); the port always runs the
-# algorithm the JAX package runs on a TPU (the per-voxel top-2 capture, the
-# fused align or the planar select).  Printed beside the figures held.
+# (``use_pallas`` and ``per_voxel_nn`` off); the port runs it with
+# per_voxel_nn off, and phase 13 (c) holds that run to these figures as it
+# holds the per-voxel run to CROSS_PIPELINE_JAX.  errors_f64: each frame's
+# error in float64 from the JAX poses, made by
+#     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/phase13_cpu_figures.py jax-cross <yaml> --cpu-defaults
+# (two at a time on 8 cores, 184-364 s each, 18 min for the eight), whose
+# float32 errors equal the ones above to every printed digit.
 CROSS_PIPELINE_JAX_XLA = {
     "lidar3d-default.yaml": dict(  # 92 s
-        worst=0.204, errors=[0.0, 0.0031, 0.0155, 0.0508, 0.1125, 0.1611, 0.1774, 0.2044, 0.1612, 0.1065, 0.0765, 0.0779]),
+        worst=0.204, errors=[0.0, 0.0031, 0.0155, 0.0508, 0.1125, 0.1611, 0.1774, 0.2044, 0.1612, 0.1065, 0.0765, 0.0779],
+        errors_f64=[0.000000, 0.003073, 0.015463, 0.050814, 0.112496, 0.163688, 0.174249, 0.203215, 0.161394, 0.105531, 0.076737, 0.077936]),
     "lidar3d-ndt.yaml": dict(  # 81 s
-        worst=0.119, errors=[0.0, 0.0412, 0.0497, 0.054, 0.079, 0.1195, 0.098, 0.0943, 0.079, 0.0574, 0.0669, 0.055]),
+        worst=0.119, errors=[0.0, 0.0412, 0.0497, 0.054, 0.079, 0.1195, 0.098, 0.0943, 0.079, 0.0574, 0.0669, 0.055],
+        errors_f64=[0.000000, 0.041246, 0.049713, 0.053985, 0.078971, 0.119452, 0.097988, 0.093143, 0.080149, 0.058233, 0.065833, 0.055159]),
     "rgbd.yaml": dict(  # 145 s
-        worst=0.046, errors=[0.0, 0.0038, 0.0099, 0.0044, 0.0093, 0.0154, 0.0327, 0.0261, 0.0314, 0.0368, 0.0456, 0.0265]),
+        worst=0.046, errors=[0.0, 0.0038, 0.0099, 0.0044, 0.0093, 0.0154, 0.0327, 0.0261, 0.0314, 0.0368, 0.0456, 0.0265],
+        errors_f64=[0.000000, 0.003771, 0.009871, 0.004440, 0.009310, 0.015409, 0.033086, 0.026294, 0.031547, 0.036615, 0.045674, 0.026540]),
     "extras/lidar3d-kissicp-like.yaml": dict(  # 81 s
-        worst=0.342, errors=[0.0, 0.0026, 0.0174, 0.0532, 0.1243, 0.236, 0.2826, 0.3423, 0.294, 0.2716, 0.2567, 0.2532]),
+        worst=0.342, errors=[0.0, 0.0026, 0.0174, 0.0532, 0.1243, 0.236, 0.2826, 0.3423, 0.294, 0.2716, 0.2567, 0.2532],
+        errors_f64=[0.000000, 0.002558, 0.017450, 0.053196, 0.124344, 0.232450, 0.282906, 0.333884, 0.293346, 0.271664, 0.257606, 0.253155]),
     "extras/lidar3d-dual-map.yaml": dict(  # 104 s
-        worst=0.212, errors=[0.0, 0.0018, 0.0175, 0.0554, 0.1146, 0.1741, 0.179, 0.2118, 0.1525, 0.1426, 0.1228, 0.1143]),
+        worst=0.212, errors=[0.0, 0.0018, 0.0175, 0.0554, 0.1146, 0.1741, 0.179, 0.2118, 0.1525, 0.1426, 0.1228, 0.1143],
+        errors_f64=[0.000000, 0.001824, 0.017471, 0.055431, 0.114562, 0.169462, 0.181811, 0.212034, 0.152400, 0.142399, 0.122890, 0.114201]),
     "extras/lidar3d-near-far.yaml": dict(  # 110 s
-        worst=0.354, errors=[0.0, 0.0, 0.03, 0.0831, 0.1623, 0.2717, 0.3544, 0.2205, 0.1496, 0.1206, 0.1037, 0.096]),
+        worst=0.354, errors=[0.0, 0.0, 0.03, 0.0831, 0.1623, 0.2717, 0.3544, 0.2205, 0.1496, 0.1206, 0.1037, 0.096],
+        errors_f64=[0.000000, 0.000000, 0.030001, 0.081875, 0.160627, 0.270490, 0.354600, 0.224165, 0.150049, 0.119234, 0.103774, 0.096126]),
     "extras/lidar3d-edges.yaml": dict(  # 128 s
-        worst=0.277, errors=[0.0, 0.0017, 0.0174, 0.0512, 0.1122, 0.176, 0.2261, 0.2774, 0.2367, 0.208, 0.2013, 0.211]),
+        worst=0.277, errors=[0.0, 0.0017, 0.0174, 0.0512, 0.1122, 0.176, 0.2261, 0.2774, 0.2367, 0.208, 0.2013, 0.211],
+        errors_f64=[0.000000, 0.001663, 0.017383, 0.052579, 0.112158, 0.177864, 0.224236, 0.277410, 0.236088, 0.207107, 0.200795, 0.210739]),
     "extras/lidar3d-intensity.yaml": dict(  # 121 s
-        worst=0.161, errors=[0.0, 0.0057, 0.0146, 0.0519, 0.1025, 0.1369, 0.1356, 0.1609, 0.0887, 0.0675, 0.0556, 0.0611]),
+        worst=0.161, errors=[0.0, 0.0057, 0.0146, 0.0519, 0.1025, 0.1369, 0.1356, 0.1609, 0.0887, 0.0675, 0.0556, 0.0611],
+        errors_f64=[0.000000, 0.005742, 0.014578, 0.051908, 0.102508, 0.139362, 0.133543, 0.162261, 0.088524, 0.067758, 0.055592, 0.061143]),
 }
 # The figures phase 13 (c) holds: the JAX package running the algorithm the
 # port runs (its TPU algorithm), driven as eval/cross_pipeline.py drives it:
@@ -2340,6 +2481,42 @@ def phase_multi_lidar(dev, scans, traj):
         raise AssertionError("multi-LiDAR: " + "; ".join(failures))
 
 
+def cross_full_voxel(dev, sub, tr, intens) -> list:
+    """Phase 13 (c) without the per-voxel view (per_voxel_nn off: every
+    point of each probed voxel, the generic loop on B4), the JAX package's
+    algorithm on a CPU: each pipeline held to CROSS_PIPELINE_JAX_XLA, its
+    worst error within CROSS_BAND and each frame's float64 error within
+    CROSS_FRAME_TOL (or CROSS_FRAME_TOL_APART, or the frame's own in
+    CROSS_FULL_VOXEL_FRAMES_APART).  Returns the failures."""
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.apps import cross_pipeline as cp
+
+    failures = []
+    for name in cp.PIPELINES:
+        r = cp.run_pipeline(os.path.join(cp.ROOT, name), sub, tr, intens, cp.CAPS, dev, per_voxel_nn=False)
+        torch.cuda.empty_cache()
+        ref = CROSS_PIPELINE_JAX_XLA[name]
+        d64 = np.abs(np.subtract(r["errors_f64"], ref["errors_f64"]))
+        tol = np.full(len(d64), CROSS_FRAME_TOL_APART.get(name, CROSS_FRAME_TOL))
+        for k, t in CROSS_FULL_VOXEL_FRAMES_APART.get(name, {}).items():
+            tol[k] = t
+        log(f"tools: cross full voxel {name}: worst {r['worst']:.4f} (JAX's CPU algorithm {ref['worst']:.4f}, band "
+            f"{CROSS_BAND}; the per-voxel view {CROSS_PIPELINE_JAX[name]['worst']:.4f}); float64 metric "
+            f"{r['worst_f64']:.4f}; errors {[round(e, 4) for e in r['errors']]}; iterations {r['iterations']}; "
+            f"quality {[round(q, 3) for q in r['quality']]}; {np.mean(r['secs'][1:]):.3f} s/frame after frame 0; "
+            f"float64 differences from JAX's per frame {[float(f'{d:.2e}') for d in d64]} (tolerance "
+            f"{tol[0]:g}" + "".join(f", frame {k} {t:g}" for k, t in CROSS_FULL_VOXEL_FRAMES_APART.get(name, {}).items())
+            + ")")
+        if not abs(r["worst"] - ref["worst"]) <= CROSS_BAND:
+            failures.append(f"{name} full voxel worst {r['worst']:.4f} outside the {CROSS_BAND} band of "
+                            f"{ref['worst']:.4f}")
+        if not (d64 <= tol).all():
+            failures.append(f"{name} full voxel float64 errors of frames {np.flatnonzero(d64 > tol).tolist()} more "
+                            f"than their tolerance from JAX's")
+    return failures
+
+
 def phase_tools(dev, scans, traj):
     """Phase 13 (see the module docstring): (a) apps/trace_step.py on the
     bench configuration, (b) apps/profile_stages.py at B = 1 and B = 8, (c)
@@ -2422,6 +2599,7 @@ def phase_tools(dev, scans, traj):
         if not d64.max() <= tol:
             failures.append(f"{name} float64 errors of frames {np.flatnonzero(d64 > tol).tolist()} more than "
                             f"{tol} from JAX's")
+    failures += cross_full_voxel(dev, sub, tr, intens)
     if failures:
         raise AssertionError("tools: cross-pipeline: " + "; ".join(failures))
 
@@ -2477,6 +2655,31 @@ def phase_paths(dev, recs, seq_scans, seq_traj):
         raise AssertionError(f"kernels never launched on any path: {never}")
 
 
+def phase_full_voxel(dev, seq_scans, seq_traj):
+    """The full-voxel parts of phases 3, 11 and 13 (c) alone: B4 at the
+    full-voxel widths, phase 11's full-voxel paths over the first N_SCANS
+    scans, and the eight pipelines without the per-voxel view over the first
+    CROSS_FRAMES.  Returns each kernel's launches."""
+    from mola_lidar_odometry_tpu_torch.apps import bench_sequence as bs
+    from mola_lidar_odometry_tpu_torch.apps.profile_stages import kernel_wrappers
+
+    wrappers = kernel_wrappers()
+    names = {"B1": "capture_planar", "B2": "capture_planar_reselect", "B3": "align_fused", "B4": "nn_select"}
+    recs = [dict(name=names[k], wrapper=w, max_abs_err=0.0) for k, w in wrappers.items()]
+    phase_kernel_match_full_voxel(dev)
+    launches = collections.Counter(phase_complete(dev, recs, seq_scans[:N_SCANS], bs.head(seq_traj, N_SCANS),
+                                                  tags=COMPLETE_FULL_VOXEL, rest=False))
+    for w in wrappers.values():
+        w.launches = 0
+    sub, tr = seq_scans[:CROSS_FRAMES], bs.head(seq_traj, CROSS_FRAMES)
+    failures = cross_full_voxel(dev, sub, tr, bs.scan_intensities(sub))
+    if failures:
+        raise AssertionError("full voxel: cross-pipeline: " + "; ".join(failures))
+    launches.update({names[k]: w.launches for k, w in wrappers.items()})
+    log(f"full voxel: launches {dict(launches)}")
+    return launches
+
+
 def simulate(n: int):
     """The first ``n`` scans of the bench's sequence (apps/bench_sequence.py),
     simulated by one spawned process per CPU core."""
@@ -2497,13 +2700,18 @@ def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on the GPU")
     ap.add_argument("--only-point-axis", action="store_true", help="phases 1, 2 and 12 only (no kernels line)")
     ap.add_argument("--only-tools", action="store_true", help="phases 1, 2 and 13 only (no kernels line)")
+    ap.add_argument("--only-full-voxel", action="store_true",
+                    help="phases 1, 2 and the full-voxel parts of 3, 11 and 13 (c) only (no kernels line)")
     args = ap.parse_args()
     phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    if args.only_point_axis or args.only_tools:
-        if args.only_point_axis:
+    if args.only_point_axis or args.only_tools or args.only_full_voxel:
+        if args.only_full_voxel:
+            launches = phase_full_voxel("cuda", *simulate(CROSS_FRAMES))
+            never = [k for k in DUALMAP_KERNELS if launches.get(k, 0) <= 0]
+        elif args.only_point_axis:
             launches = phase_point_axis("cuda", *simulate(POINT_SCANS))
             never = [k for k, v in launches.items() if v <= 0]
         else:
@@ -2519,6 +2727,7 @@ def main():
     recs = phase_kernels("cuda")
     phase_kernel_windows("cuda")
     recs.append(phase_kernel_match("cuda"))
+    phase_kernel_match_full_voxel("cuda", recs[-1])
     phase_paths("cuda", recs, *simulate(TOOL_SCANS))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

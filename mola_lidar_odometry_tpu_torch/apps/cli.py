@@ -14,7 +14,11 @@ Port of ``mola_lidar_odometry_tpu/apps/cli.py``: the same flags, plus
 the environment) pin them, the other one taking the JAX CLI's default
 (131072 raw points, 262144 map slots); with none of them every buffer and
 the map's insert budget are derived from the first scan
-(``utils/capacity.py``).
+(``utils/capacity.py``).  ``--per-voxel-nn``, ``--nn-neighbors`` and
+``--icp-anderson`` set the ICP knobs the JAX CLI reads from
+``MOLA_TPU_PER_VOXEL_NN``, ``MOLA_TPU_NN_NEIGHBORS`` and
+``MOLA_TPU_ICP_ANDERSON``; unset, each flag takes its variable's value,
+so the same environment gives both CLIs the same algorithm.
 
 Usage:
     python -m mola_lidar_odometry_tpu_torch.apps.cli \
@@ -88,7 +92,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="raw points per scan (default 131072 when --map-slots is given, else derived)")
     e.add_argument("--map-slots", type=int, default=os.environ.get("MOLA_TPU_MAP_SLOTS"),
                    help="local-map hash slots (default 262144 when --raw-capacity is given, else derived)")
+    # the JAX package's ICP knobs (its MOLA_TPU_* variables), on both ICP blocks
+    e.add_argument("--per-voxel-nn", type=int, choices=(0, 1), default=os.environ.get("MOLA_TPU_PER_VOXEL_NN"),
+                   help="1: capture the two points of each probed voxel nearest the query (the default); "
+                        "0: every point of each probed voxel, the generic ICP loop (the JAX package's CPU default)")
+    e.add_argument("--nn-neighbors", type=int, default=os.environ.get("MOLA_TPU_NN_NEIGHBORS"),
+                   help="voxels probed per query: 8 (nearest 2x2x2) or 27 (3x3x3); default 8 for single-matcher "
+                        "pipelines, 27 for the others")
+    e.add_argument("--icp-anderson", type=int, default=os.environ.get("MOLA_TPU_ICP_ANDERSON"),
+                   help="Anderson acceleration depth of the ICP loop (0 = off, the default)")
     return p
+
+
+def icp_overrides(args) -> dict:
+    """The ICP knobs given (by flag or environment) as ``spec_from_yaml``
+    overrides."""
+    knobs = dict(per_voxel_nn=args.per_voxel_nn, nn_neighbors=args.nn_neighbors, anderson_m=args.icp_anderson)
+    if knobs["per_voxel_nn"] is not None:
+        knobs["per_voxel_nn"] = bool(knobs["per_voxel_nn"])
+    return {k: v for k, v in knobs.items() if v is not None}
 
 
 def make_dataset(args):
@@ -140,6 +162,7 @@ def run(argv=None):
     overrides = {}
     if args.lidar_sensor_label:
         overrides["lidar_sensor_labels"] = (args.lidar_sensor_label,)
+    overrides.update(icp_overrides(args))
 
     from dataclasses import replace
 

@@ -16,10 +16,15 @@ the error go to stderr; per pipeline its worst error and its seconds per
 frame, then the markdown table, to stdout.  The error is the JAX script's
 float32 figure; beside it the same in float64 (``gt_error_f64``).
 
+By default the port runs the JAX package's TPU algorithm (the per-voxel
+capture).  ``--per-voxel-nn 0`` runs what the JAX script runs on a CPU by
+default: every point of each probed voxel, the generic ICP loop.
+
 Usage:
     python -m mola_lidar_odometry_tpu_torch.apps.cross_pipeline [--frames 12] [--pipelines a.yaml ...]
     python -m mola_lidar_odometry_tpu_torch.apps.cross_pipeline --device cpu --frames 3 --rings 16 --azimuth 512 \\
         --pipelines lidar3d-default.yaml
+    python -m mola_lidar_odometry_tpu_torch.apps.cross_pipeline --per-voxel-nn 0   # the JAX script's CPU algorithm
 """
 
 from __future__ import annotations
@@ -87,16 +92,17 @@ def gt_error_f64(traj, k: int, R, t) -> float:
     return float(np.linalg.norm(se3_log(*relative(gR, gt, np.asarray(R, np.float64), np.asarray(t, np.float64)))))
 
 
-def run_pipeline(path: str, scans, traj, intens, caps: dict, device, log=None) -> dict:
+def run_pipeline(path: str, scans, traj, intens, caps: dict, device, log=None, **knobs) -> dict:
     """One pipeline (a YAML path) through ``LidarOdometry`` at ``caps`` over
     ``scans``, fed as the JAX script feeds them; returns its per-frame
     errors, qualities and iterations, the worst error and the seconds per
     frame (each frame's wall time, the readback included).  The errors are
     the JAX script's float32 figure (``errors``, ``worst``) and the same in
-    float64 (``errors_f64``, ``worst_f64``)."""
+    float64 (``errors_f64``, ``worst_f64``).  ``knobs`` are ICP overrides of
+    ``spec_from_yaml`` (``per_voxel_nn``, ``nn_neighbors``, ``anderson_m``)."""
     from mola_lidar_odometry_tpu_torch.models.odometry import LidarOdometry
 
-    lo = LidarOdometry.from_yaml_file(path, device=device, **caps)
+    lo = LidarOdometry.from_yaml_file(path, device=device, **caps, **knobs)
     errs, errs64, quals, iters, secs = [], [], [], [], []
     name = os.path.relpath(path, ROOT) if path.startswith(ROOT) else path
     for k, (xyz, times, rings, valid) in enumerate(scans):
@@ -126,6 +132,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rings", type=int, default=64)
     ap.add_argument("--azimuth", type=int, default=2048)
     ap.add_argument("--device", default="cuda", help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--per-voxel-nn", type=int, choices=(0, 1), default=1,
+                    help="0: every point of each probed voxel, the generic ICP loop (the JAX script's CPU default)")
     return ap
 
 
@@ -142,7 +150,8 @@ def main(argv=None) -> list:
     caps = caps_for(args.rings * args.azimuth)
     rows = []
     for name in args.pipelines:
-        r = run_pipeline(os.path.join(ROOT, name), scans, traj, intens, caps, args.device, log=sys.stderr)
+        r = run_pipeline(os.path.join(ROOT, name), scans, traj, intens, caps, args.device, log=sys.stderr,
+                         per_voxel_nn=bool(args.per_voxel_nn))
         rows.append(r)
         print(f"{name}: worst={r['worst']:.3f} (float64 {r['worst_f64']:.3f}; "
               f"{np.mean(r['secs'][1:] or r['secs']):.3f} s/frame after frame 0)", flush=True)

@@ -7,11 +7,18 @@ Numeric fields that the reference declares as Parameterizable expressions
 stay :class:`Expr` and are evaluated per frame on the fleet's ``(B,)``
 dynamic variables.
 
-Unlike the JAX package, the port reads no ``MOLA_TPU_*`` environment
-switches: every ICP block gets the algorithm the JAX package runs on a TPU
-by default (per-voxel top-2 capture, fused two-phase align, refresh by
-reselect, 8 probes for single-matcher configs), the insert budget follows
-the "auto" rule, and capacities come from the caller.
+Unlike the JAX package, the library reads no ``MOLA_TPU_*`` environment
+variable.  By default every ICP block gets the algorithm the JAX package
+runs on a TPU (per-voxel top-2 capture, fused two-phase align, refresh by
+reselect, 8 probes for single-matcher configs and 27 for multi-matcher
+ones), the insert budget follows the "auto" rule, and capacities come from
+the caller.  Three ICP knobs of the JAX package are overrides of
+:func:`spec_from_yaml`, applied to both ICP blocks: ``per_voxel_nn``
+(``MOLA_TPU_PER_VOXEL_NN``; ``False`` is the JAX package's default on every
+backend but a TPU: every point of each probed voxel, the generic loop),
+``nn_neighbors`` (``MOLA_TPU_NN_NEIGHBORS``: 8 or 27 probes) and
+``anderson_m`` (``MOLA_TPU_ICP_ANDERSON``).  The CLI (``apps/cli.py``) reads
+those variables as the defaults of its flags.
 
 The reference's host-side block (sensor labels, the worker queue,
 multi-LiDAR merging, trajectory and debug-trace files, map loading and
@@ -22,7 +29,7 @@ package; ``models/odometry.py`` (``LidarOdometry``) and ``utils/runtime.py``
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, Optional, Tuple
 
 from mola_lidar_odometry_tpu_torch.models.filter_graph import Pipeline, build_pipeline
@@ -160,8 +167,9 @@ class OdometrySpec:
     start_active: bool = True
 
 
-def _icp_from_yaml(block: dict, spec_hook: Tuple[float, float]) -> Tuple[IcpConfig, str]:
-    """Parse an ``icp_settings_*`` YAML block (matchers, solvers, params).
+def _icp_from_yaml(block: dict, spec_hook: Tuple[float, float], knobs: Optional[dict] = None) -> Tuple[IcpConfig, str]:
+    """Parse an ``icp_settings_*`` YAML block (matchers, solvers, params);
+    ``knobs`` (``spec_from_yaml``'s ICP overrides) replace their fields.
 
     Returns (IcpConfig, primary_local_layer) — the primary local layer (first
     matcher's) drives the sensor-range estimate and point-count stats.
@@ -243,7 +251,7 @@ def _icp_from_yaml(block: dict, spec_hook: Tuple[float, float]) -> Tuple[IcpConf
         hook_min_trans=hook_trans,
         hook_min_rot=hook_rot,
     )
-    return cfg, mcfgs[0].local_layer
+    return replace(cfg, **(knobs or {})), mcfgs[0].local_layer
 
 
 def _map_layers_from_yaml(gen_list, num_slots: int) -> Tuple[MapLayerDef, ...]:
@@ -263,9 +271,13 @@ def spec_from_yaml(cfg: dict, **overrides) -> OdometrySpec:
     """Build an :class:`OdometrySpec` from a loaded pipeline YAML dict.
 
     ``overrides`` replaces top-level spec fields (CLI flags beat YAML, like
-    the reference's apps/mola-lidar-odometry-cli.cpp:391-399).
+    the reference's apps/mola-lidar-odometry-cli.cpp:391-399), except
+    ``per_voxel_nn``, ``nn_neighbors`` and ``anderson_m``, which replace
+    those fields of both ICP blocks (None leaves the default).
     """
     params = cfg.get("params", {}) or {}
+    icp_knobs = {k: overrides.pop(k) for k in ("per_voxel_nn", "nn_neighbors", "anderson_m") if k in overrides}
+    icp_knobs = {k: v for k, v in icp_knobs.items() if v is not None}
 
     raw_capacity = int(overrides.pop("raw_capacity", 1 << 17))
     num_slots = int(overrides.pop("map_slots", 1 << 18))
@@ -279,12 +291,12 @@ def spec_from_yaml(cfg: dict, **overrides) -> OdometrySpec:
 
     hook = (hook_trans, math.radians(hook_rot_deg)) if hook_enabled else (0.0, 0.0)
 
-    icp_with, local_layer = _icp_from_yaml(cfg.get("icp_settings_with_vel", {}) or {}, hook)
+    icp_with, local_layer = _icp_from_yaml(cfg.get("icp_settings_with_vel", {}) or {}, hook, icp_knobs)
     without_block = cfg.get("icp_settings_without_vel")
     if without_block:
-        icp_without, _ = _icp_from_yaml(without_block, hook)
+        icp_without, _ = _icp_from_yaml(without_block, hook, icp_knobs)
     else:
-        icp_without = icp_with  # reference default: same as with_vel
+        icp_without = icp_with  # reference default: same as with_vel (one align a step, models/step.py)
 
     lm = params.get("local_map_updates", {}) or {}
     sm = params.get("simplemap", {}) or {}
@@ -433,7 +445,5 @@ def spec_from_yaml(cfg: dict, **overrides) -> OdometrySpec:
         start_active=as_bool(params.get("start_active"), default=True),
     )
     if overrides:
-        from dataclasses import replace
-
         spec = replace(spec, **overrides)
     return spec

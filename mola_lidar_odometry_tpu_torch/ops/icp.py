@@ -29,6 +29,13 @@ and the loop's exit test ``live.any()`` is one host sync per iteration.
 Every single-pairing point-to-point matcher on a point map matches through
 kernel B4 (``pallas_match.nn_select``) on planar candidates; NDT layers
 pair with their voxel means and planes (``ops/ndt.py``).
+
+``IcpConfig.per_voxel_nn`` selects the capture, as in the JAX package: on
+(the default, the JAX package's TPU setting) each probed voxel reduces to
+its two points nearest the query and the fused path is open; off (the JAX
+package's setting on every other backend) every point of each probed voxel
+is a candidate (``C = P*K``), the fused path is barred, and the generic
+loop selects over all of them on kernel B4.
 """
 
 from __future__ import annotations
@@ -85,11 +92,15 @@ class HornCfg:
 class IcpConfig:
     """Static ICP configuration compiled from a pipeline YAML block.
 
-    The JAX package's ``use_pallas`` and ``per_voxel_nn`` switches have no
-    counterpart: the port always runs their ``True`` setting (the fused
-    path where eligible, per-voxel top-2 capture and the planar select in
-    the generic loop), on the CUDA kernels for CUDA tensors and on their
-    plain twins for CPU tensors."""
+    ``per_voxel_nn`` is the JAX package's switch of that name (its
+    ``MOLA_TPU_PER_VOXEL_NN``): on, single-pairing point-to-point matchers
+    capture the per-voxel top-2 view and eligible configurations take the
+    fused path; off, they capture every point of each probed voxel and
+    every configuration takes the generic loop.  The JAX package's
+    ``use_pallas`` has no counterpart: the port always matches planar
+    candidates (kernel B4 for CUDA tensors, its plain twin for CPU
+    tensors), where the JAX package without it selects in XLA over the
+    same candidates."""
 
     max_iterations: int = 300
     min_abs_step_trans: float = 1e-4
@@ -99,6 +110,7 @@ class IcpConfig:
     gn_inner_iterations: int = 2
     horn: Optional[HornCfg] = None
     nn_neighbors: int = 8
+    per_voxel_nn: bool = True
     anderson_m: int = 0
     hook_min_trans: float = 0.0
     hook_min_rot: float = 0.0
@@ -194,6 +206,7 @@ def _align_fused_call(cfg, maps, layers, init_pose: Pose, prior: PosePrior, env,
 def _capture_all(cfg: IcpConfig, maps, layers, pose: Pose) -> Tuple[Any, ...]:
     """One neighbourhood capture per matcher at ``pose``.  Single-pairing
     point-to-point matchers on point maps capture the per-voxel top-2 view
+    under ``per_voxel_nn`` (every point of each probed voxel without it)
     and go planar for kernel B4; two pairings per point and point-to-plane
     need the full per-voxel sets; NDT layers capture their voxel means."""
     sets = []
@@ -201,7 +214,7 @@ def _capture_all(cfg: IcpConfig, maps, layers, pose: Pose) -> Tuple[Any, ...]:
         xyz, _ = layers[mc.local_layer]
         q = se3.transform(pose, xyz)
         single = mc.kind == "point2point" and mc.pairings_per_point == 1
-        cs = maps_ops.capture(maps[mc.global_layer], q, cfg.nn_neighbors, single)
+        cs = maps_ops.capture(maps[mc.global_layer], q, cfg.nn_neighbors, cfg.per_voxel_nn and single)
         planar = single and isinstance(cs, CandSet)
         sets.append(pallas_match.to_planar(cs) if planar else cs)
     return tuple(sets)
@@ -430,7 +443,8 @@ def align(
 ) -> IcpResult:
     """Run the matcher->solver loop from ``init_pose`` for every instance
     until convergence, budget exhaustion or a hook stop: the fused path
-    where the configuration allows it, else the generic loop.  Under a
+    where the configuration allows it (``per_voxel_nn`` among its
+    conditions, as in the JAX package), else the generic loop.  Under a
     point axis the fused path's kernels run on every rank on the whole
     layers (their results are the one-device results), and the generic
     loop splits each layer's rows over the ranks."""
@@ -444,6 +458,7 @@ def align(
     m0 = maps.get(mc0.global_layer)
     fused = (
         hook_on
+        and cfg.per_voxel_nn
         and cfg.horn is None
         and _fused_eligible(cfg)
         and isinstance(m0, VoxelHashMap)

@@ -11,7 +11,10 @@ iterations and flags, then the mean quality, the final-pose GT error and
 the collision drops against the points offered to the map.
 The fused configuration (``k64``) runs the JAX package's TPU algorithm (its
 Pallas kernels in interpret mode), the others its generic loop with the XLA
-twin of the nearest-select kernel, as the family tests do.
+twin of the nearest-select kernel, as the family tests do; the full-voxel
+tags (``chip_smoke.COMPLETE_FULL_VOXEL``) at the JAX package's CPU defaults
+(``MOLA_TPU_PALLAS=0 MOLA_TPU_PER_VOXEL_NN=0``: every point of each probed
+voxel, the nearest selected in XLA).
 
 Tag ``oracle``: the JAX package's ``LidarOdometry`` (auto-sized, the TPU
 algorithm) beside its float64 oracle over the same scans, and the three
@@ -37,6 +40,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.join(HERE, "..")
 TPU_ALGO = {"MOLA_TPU_PALLAS": "1", "MOLA_TPU_PER_VOXEL_NN": "1", "MOLA_TPU_PALLAS_CAPTURE": "1"}
 GENERIC = {"MOLA_TPU_PALLAS": "0", "MOLA_TPU_PER_VOXEL_NN": "1"}
+FULL_VOXEL = {"MOLA_TPU_PALLAS": "0", "MOLA_TPU_PER_VOXEL_NN": "0"}  # the JAX package's CPU defaults
 N_SCANS = 8
 
 
@@ -63,7 +67,7 @@ def _gt_error(traj, k, R, t) -> float:
 def run_config(tag: str) -> dict:
     import chip_smoke
 
-    os.environ.update(TPU_ALGO if tag == "k64" else GENERIC)
+    os.environ.update(TPU_ALGO if tag == "k64" else FULL_VOXEL if tag in chip_smoke.COMPLETE_FULL_VOXEL else GENERIC)
     if tag in chip_smoke.COMPLETE_ANDERSON:
         os.environ["MOLA_TPU_ICP_ANDERSON"] = str(chip_smoke.COMPLETE_ANDERSON[tag])
     import jax
@@ -93,7 +97,8 @@ def run_config(tag: str) -> dict:
                          seconds=round(time.time() - t1, 2)))
         print(tag, rows[-1], file=sys.stderr, flush=True)
     m = carry.maps["localmap"]
-    return dict(tag=tag, sizing=sizing, K=int(m.K), stride=int(m.stride),
+    return dict(tag=tag, sizing=sizing, K=int(m.K), stride=int(m.stride), maps=sorted(carry.maps),
+                per_voxel_nn=bool(spec.icp_with_vel.per_voxel_nn), nn_neighbors=int(spec.icp_with_vel.nn_neighbors),
                 min_distance=float(spec.map_layers[0].min_distance_between_points),
                 anderson_m=int(spec.icp_with_vel.anderson_m), horn=spec.icp_with_vel.horn is not None,
                 one_to_one=not spec.icp_with_vel.matchers[0].allow_match_already_matched,

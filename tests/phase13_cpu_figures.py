@@ -3,6 +3,7 @@
     PYTHONPATH=. python tests/phase13_cpu_figures.py port-multi-lidar
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/phase13_cpu_figures.py jax-multi-lidar
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/phase13_cpu_figures.py jax-cross <pipeline yaml> [--frames 12] [--cpu-defaults]
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/phase13_cpu_figures.py jax-fork <pipeline yaml> --frames <k+1>
 
 Each prints one JSON line.
 
@@ -22,6 +23,14 @@ run the algorithm the port runs (``--cpu-defaults`` leaves them unset, as
 the plain script does).  Beside the script's figures it gives each frame's
 error in float64 from the JAX poses (``apps/cross_pipeline.gt_error_f64``),
 which ``chip_smoke.CROSS_PIPELINE_JAX`` holds.
+
+``jax-fork``: where the full-voxel run (the port with ``per_voxel_nn`` off,
+the JAX package at its CPU defaults) parts from the JAX figures, whose fork
+is it?  Both packages' fleet steps (B = 1, ``CAPS``, the same sequence, the
+port on the CPU) step frames 0..k-1 each from its own carry, and at every
+frame the port also steps from the JAX package's carry of the frame before.
+At frame k the JAX package also steps from the port's own carry
+(``chip_smoke.CROSS_FULL_VOXEL_FRAMES_APART`` cites the figures).
 """
 
 import argparse
@@ -100,9 +109,68 @@ def jax_cross(name: str, frames: int, cpu_defaults: bool):
                 quality=quals, iterations=iters)
 
 
+def jax_fork(name: str, frames: int):
+    os.environ.update({"MOLA_TPU_PALLAS": "0", "MOLA_TPU_PER_VOXEL_NN": "0"})
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.tree_util import DictKey, FlattenedIndexKey, GetAttrKey, tree_map_with_path
+
+    from mola_lidar_odometry_tpu.models.spec import spec_from_yaml as jspec_from
+    from mola_lidar_odometry_tpu.parallel import batch as jpb
+    from mola_lidar_odometry_tpu.utils.config import load_yaml_file as jload
+    from mola_lidar_odometry_tpu_torch.apps import bench_sequence as bs, cross_pipeline as cp
+    from mola_lidar_odometry_tpu_torch.models.spec import spec_from_yaml as tspec_from
+    from mola_lidar_odometry_tpu_torch.parallel import batch as tpb
+    from mola_lidar_odometry_tpu_torch.utils import carry_io
+    from mola_lidar_odometry_tpu_torch.utils.config import load_yaml_file as tload
+
+    def jax_carry_from(jc, pc):
+        """The JAX carry ``jc``'s structure with the leaves of the port's numpy carry ``pc``."""
+        def leaf(path, like):
+            x = pc
+            for k in path:
+                if isinstance(k, GetAttrKey):
+                    x = getattr(x, k.name)
+                elif isinstance(k, DictKey):
+                    x = x[k.key]
+                else:  # a point map's flattened leaves
+                    assert isinstance(k, FlattenedIndexKey)
+                    x = getattr(x, ("voxel_size", "data", "epoch")[k.key])
+            return jnp.asarray(np.asarray(x, like.dtype).reshape(like.shape))
+        return tree_map_with_path(leaf, jc)
+
+    scans, traj = bs.gen_scans(frames, workers=2)
+    path = os.path.join(cp.ROOT, name)
+    js = jspec_from(jload(path, env={}), **cp.CAPS)
+    ts = tspec_from(tload(path, env={}), per_voxel_nn=False, **cp.CAPS)
+    assert not (js.icp_with_vel.per_voxel_nn or js.icp_with_vel.use_pallas)
+    jstep, tstep = jax.jit(jpb.make_fleet_step(js)), tpb.make_fleet_step(ts)
+    jc, tc = jpb.init_fleet_carry(js, 1), tpb.init_fleet_carry(ts, 1, device="cpu")
+    rows = []
+    for k, scan in enumerate(scans):
+        jin, tin = jpb.pack_scans(js, [scan], [traj.stamps[k]]), tpb.pack_scans(ts, [scan], [traj.stamps[k]], device="cpu")
+        if k == frames - 1:  # the JAX package from the port's own carry
+            _, jo_p = jstep(jax_carry_from(jc, carry_io.carry_to_numpy(tc)), jin)
+        jnum = jax.tree_util.tree_map(np.asarray, jc)
+        _, to_j = tstep(carry_io.carry_from_numpy(jnum, device="cpu"), tin)
+        pc = carry_io.carry_to_numpy(tc)
+        jc, jo = jstep(jc, jin)
+        tc, to = tstep(tc, tin)
+        rows.append(dict(frame=k, iterations_jax=int(jo.iterations[0]), iterations_port=int(to.iterations[0]),
+                         iterations_port_from_jax_carry=int(to_j.iterations[0]),
+                         t_port_from_jax_carry_vs_jax=float(np.abs(to_j.pose_t.numpy() - np.asarray(jo.pose_t)).max()),
+                         t_port_vs_jax=float(np.abs(to.pose_t.numpy() - np.asarray(jo.pose_t)).max()),
+                         carry_t_before=float(np.abs(pc.pose_t - jnum.pose_t).max())))
+        print(name, rows[-1], file=sys.stderr, flush=True)
+    fork = dict(iterations_jax_from_port_carry=int(jo_p.iterations[0]),
+                t_jax_from_port_carry_vs_port=float(np.abs(np.asarray(jo_p.pose_t) - to.pose_t.numpy()).max()))
+    return dict(name=name, frames=rows, fork=fork)
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("mode", choices=("port-multi-lidar", "jax-multi-lidar", "jax-cross"))
+    ap.add_argument("mode", choices=("port-multi-lidar", "jax-multi-lidar", "jax-cross", "jax-fork"))
     ap.add_argument("pipeline", nargs="?")
     ap.add_argument("--frames", type=int, default=12)
     ap.add_argument("--cpu-defaults", action="store_true")
@@ -112,6 +180,8 @@ def main():
         r = port_multi_lidar()
     elif args.mode == "jax-multi-lidar":
         r = jax_multi_lidar()
+    elif args.mode == "jax-fork":
+        r = jax_fork(args.pipeline, args.frames)
     else:
         r = jax_cross(args.pipeline, args.frames, args.cpu_defaults)
     r["wall_s"] = time.time() - t0
