@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only-point-axis    # phases 1, 2 and 12 (the four-card NCCL run)
     python3 chip_smoke.py --only-tools         # phases 1, 2 and 13
     python3 chip_smoke.py --only-full-voxel    # phases 1, 2 and the full-voxel parts of 3, 11 and 13 (c)
+    python3 chip_smoke.py --only-dispatch      # phases 1, 2 and the ICP dispatch's parts of 3, 11 and 12
 
 Phases, one line of numbers each:
 
@@ -44,7 +45,14 @@ Phases, one line of numbers each:
                every point of each probed voxel, C = P*K): C = 160 over
                lidar3d-default's 8 x 3072 ICP layer (8 probes, K = 20),
                C = 540 and 270 over dual-map's two layers (27 probes, K =
-               20 and 10), each timed beside its plain twin and its bound;
+               20 and 10), each timed beside its plain twin and its bound.
+               Then the rest of the ICP dispatch: B3 on candidates from
+               the plain per-voxel capture (handed to its wrapper as a
+               CandSet) over a K = 200 map (stride 256, the probed voxels
+               filled past 126 points), lidar3d-default's 8 x 3072 ICP
+               layer, phase 1 at C = 16 and the fresh 4-probe refresh at
+               C = 8, within B3's tolerance; and B1/B2 bit for bit at 4
+               and 1 probes; each timed beside its twin and its bound;
   4. main    — steps the B=8 fleet of the lidar3d-default pipeline over the
                first 8 scans of the bench's simulated KITTI-like sequence
                (64 x 2048 rays) on the kernels, with the bench's round-5
@@ -163,10 +171,21 @@ Phases, one line of numbers each:
                per_voxel_nn off, the generic loop on B4 at C = P*K) on
                lidar3d-default and on lidar3d-dual-map, where B1-B3 must
                not launch (scans/s, device ops and B4 launches a step,
+               peak memory printed).  Last the rest of the ICP dispatch
+               (COMPLETE_DISPATCH; "k200 dedup" itself runs with
+               fused_align off, the JAX figures' MOLA_TPU_PALLAS=0): the
+               K = 200 dedup map at the default (the fused align on the
+               plain capture, B3 x2 an align), the generic loop over the
+               per-voxel view (fused_align off, B4 only), capture_kernel
+               off (B3 x2), phase1_neighbors 4 (B1, B2, B3 x2),
+               refresh_reselect off (B1 x2, B3 x2) and fused_refresh off
+               (B1, B3), each path's launches per align held exactly to
+               DISPATCH_LAUNCHES (scans/s, device ops and launches a step,
                peak memory printed).  Each is held to the JAX package's CPU
-               figures (K = 64, 200 and the full-voxel paths as phases 7-8
-               are, C6's paths to the spreads alone; collision drops to
-               its share),
+               figures (K = 64, 200, the full-voxel and the dispatch paths
+               as phases 7-8 are, C6's paths to the spreads alone;
+               collision drops to its share; the final-pose GT error in
+               float64 on both sides),
                its recorded kernel calls against their twins, its host
                syncs counted by call site.  Then the port's float64 oracle
                on the host beside the port's lidar3d-default at B=1: the
@@ -181,15 +200,19 @@ Phases, one line of numbers each:
  12. point axis — parallel/batch.py::PointShardedFleet, the JAX package's
                make_sharded_fleet_step: each scan's 131072 padded points
                split over the point cells of a mesh row, lidar3d-default
-               (SIZING, B1-B3 on the whole ICP layer on every cell) and then
+               (SIZING, B1-B3 on the whole ICP layer on every cell), then
                lidar3d-dual-map (DUALMAP_SIZING, the generic loop on B4, its
-               normal equations all-reduced) over POINT_SCANS bench scans.
+               normal equations all-reduced), then ROADMAP C14's paths:
+               lidar3d-default without the per-voxel view (the generic
+               loop on B4 at C = 160) and the K = 200 dedup map on the
+               fused align over the plain capture, over POINT_SCANS bench
+               scans.
                On one card a 1 x 2 mesh, both cells on the card over gloo
                (the split and the merge, not the scaling); with four or more
                cards nccl over fleet 2 x point 2 and then fleet 1 x point 4.
                Held against the one-process fleet of as many instances on
                the first card: lidar3d-default every output bit for bit,
-               dual-map every integer output bit for bit and poses within
+               the others every integer output bit for bit and poses within
                POINT_POSE_TOL; every cell's map replica hashed and compared
                after every step.  Prints the collectives and their bytes per
                step of cell 0, the kernels launched in the cells (added to
@@ -345,12 +368,44 @@ JAX_FIGURES = {
                   quality=[1.0, 1.0, 0.9990389347076416, 0.9952448606491089, 0.9923481345176697, 0.97398841381073, 0.9971536993980408, 0.9862232804298401]),
     "full voxel dual-map": dict(iterations=[0, 5, 7, 6, 8, 15, 12, 14], final_pose_gt_error=0.17705749472656623,
                   quality=[1.0, 0.9995725154876709, 0.9994295239448547, 0.9964488744735718, 0.9944633841514587, 0.9827266335487366, 0.9971643090248108, 0.9905969500541687]),
+    # the rest of the ICP dispatch, each tag under its environment in tests/phase11_jax_figures.py::ENVS
+    # (the same command; about 7 min for the six, three at a time on 8 cores)
+    "k200 dedup fused": dict(iterations=[0, 22, 6, 7, 10, 29, 23, 28], final_pose_gt_error=0.1496655291434215,
+                  quality=[1.0, 0.9971264600753784, 0.9956751465797424, 0.991916298866272, 0.985659658908844, 0.9648362398147583, 0.9919354915618896, 0.9833729267120361]),
+    "per-voxel generic": dict(iterations=[0, 5, 5, 23, 23, 27, 8, 28], final_pose_gt_error=0.1994279595948954,
+                  quality=[1.0, 1.0, 0.9990389347076416, 0.9952448606491089, 0.9923481345176697, 0.97398841381073, 0.9971536993980408, 0.9862232804298401]),
+    "capture off": dict(iterations=[0, 23, 8, 24, 22, 24, 13, 24], final_pose_gt_error=0.18874666693880196,
+                  quality=[1.0, 0.9985632300376892, 0.99711674451828, 0.9938183426856995, 0.9875657558441162, 0.9672446846961975, 0.9947817921638489, 0.9833729267120361]),
+    "phase1 4-probe": dict(iterations=[0, 5, 6, 23, 22, 24, 24, 25], final_pose_gt_error=0.2008257338825669,
+                  quality=[1.0, 0.9985632300376892, 0.997597336769104, 0.9938183426856995, 0.9870874881744385, 0.9686897993087769, 0.9933586120605469, 0.9843230247497559]),
+    "fresh refresh": dict(iterations=[0, 23, 8, 24, 22, 24, 13, 24], final_pose_gt_error=0.18874666693880196,
+                  quality=[1.0, 0.9985632300376892, 0.99711674451828, 0.9938183426856995, 0.9875657558441162, 0.9672446846961975, 0.9947817921638489, 0.9833729267120361]),
+    "single phase": dict(iterations=[0, 5, 5, 8, 5, 8, 8, 8], final_pose_gt_error=0.21945490764935138,
+                  quality=[1.0, 1.0, 0.9990389347076416, 0.9952448606491089, 0.9923481345176697, 0.9735067486763, 0.9971536993980408, 0.9862232804298401]),
+}
+COMPLETE_FULL_VOXEL = ("full voxel", "full voxel dual-map")  # the JAX package's MOLA_TPU_PER_VOXEL_NN=0
+# The rest of the JAX package's ICP dispatch: the fused align on the plain
+# capture at 200 points per voxel (its refresh a fresh 4-probe capture),
+# the generic loop over the per-voxel view, and the fused path's switches.
+COMPLETE_DISPATCH = ("k200 dedup fused", "per-voxel generic", "capture off", "phase1 4-probe", "fresh refresh",
+                     "single phase")
+COMPLETE = ("k64", "k200 dedup", "no motion model", "anderson", "one-to-one") + COMPLETE_FULL_VOXEL + COMPLETE_DISPATCH
+# Each tag's spec_from_yaml ICP overrides (tests/phase11_jax_figures.py
+# gives the JAX package the matching MOLA_TPU_* environment).  "k200 dedup"
+# is pinned to the generic loop: the JAX figures it is held to are its
+# MOLA_TPU_PALLAS=0 run, and "k200 dedup fused" runs the default.
+COMPLETE_KNOBS = {
+    "k200 dedup": dict(fused_align=False), "anderson": dict(anderson_m=3),
+    "full voxel": dict(per_voxel_nn=False), "full voxel dual-map": dict(per_voxel_nn=False),
+    "per-voxel generic": dict(fused_align=False), "capture off": dict(capture_kernel=False),
+    "phase1 4-probe": dict(phase1_neighbors=4), "fresh refresh": dict(refresh_reselect=False),
+    "single phase": dict(fused_refresh=False),
 }
 # Every configuration of COMPLETE sizes as lidar3d-default does: the JAX
 # package's utils/capacity.py derives SIZING for each (the command above
 # prints them), and phase 11 holds the port's derivation to it.
 COMPLETE_SIZING = dict({tag: SIZING for tag in ("k64", "k200 dedup", "no motion model", "anderson", "one-to-one",
-                                                 "full voxel")}, **{"full voxel dual-map": DUALMAP_SIZING})
+                                                 "full voxel") + COMPLETE_DISPATCH}, **{"full voxel dual-map": DUALMAP_SIZING})
 # Their collision drops against the points offered to the map over the 8
 # scans (the same command): a 128- or 256-lane window makes each bucket a
 # single way, so at the derived 65536 slots the deep maps drop ~1.1-1.2% of
@@ -359,7 +414,9 @@ COMPLETE_SIZING = dict({tag: SIZING for tag in ("k64", "k200 dedup", "no motion 
 # to the other paths' 0.1%.
 COMPLETE_DROPS = {"k64": (868, 73897), "k200 dedup": (832, 73899), "no motion model": (0, 73893),
                   "anderson": (0, 73899), "one-to-one": (0, 73898), "full voxel": (0, 73899),
-                  "full voxel dual-map": (0, 74089)}
+                  "full voxel dual-map": (0, 74089), "k200 dedup fused": (831, 73897), "per-voxel generic": (0, 73899),
+                  "capture off": (0, 73900), "phase1 4-probe": (0, 73899), "fresh refresh": (0, 73900),
+                  "single phase": (0, 73897)}
 DROP_SPREAD = 0.002
 # Phase 11 (c): the JAX package's LidarOdometry (auto-sized, the TPU
 # algorithm) beside its float64 oracle over the 8 bench scans, the three
@@ -415,18 +472,16 @@ GT_SPREAD = 0.01
 # scan (equal to the JAX package's, checked): 64 points per voxel (a
 # 128-lane window on the fused path, B1-B3), 200 points per voxel with
 # min_distance_between_points 0.2 (a 256-lane window with the dedup, the
-# generic loop on B4), and ROADMAP C6's paths, all on the generic loop: the
-# no-motion-model ICP block (Horn, then Gauss-Newton) for every frame,
-# Anderson acceleration of depth 3, and a one-to-one matcher.  Last the
-# full-voxel capture (the JAX package's algorithm on every backend but a
-# TPU: per_voxel_nn off, every point of each probed voxel, the generic loop
-# on B4) on lidar3d-default (8 probes, C = 160) and on lidar3d-dual-map (27
-# probes, C = 540 and 270).
-COMPLETE = ("k64", "k200 dedup", "no motion model", "anderson", "one-to-one", "full voxel", "full voxel dual-map")
-COMPLETE_ANDERSON = {"anderson": 3}  # the JAX package's MOLA_TPU_ICP_ANDERSON
-COMPLETE_FULL_VOXEL = ("full voxel", "full voxel dual-map")  # the JAX package's MOLA_TPU_PER_VOXEL_NN=0
-
-
+# generic loop on B4 with fused_align off), and ROADMAP C6's paths, all on
+# the generic loop: the no-motion-model ICP block (Horn, then Gauss-Newton)
+# for every frame, Anderson acceleration of depth 3, and a one-to-one
+# matcher.  Then the full-voxel capture (the JAX package's algorithm on
+# every backend but a TPU: per_voxel_nn off, every point of each probed
+# voxel, the generic loop on B4) on lidar3d-default (8 probes, C = 160) and
+# on lidar3d-dual-map (27 probes, C = 540 and 270).  Last the rest of the
+# dispatch (COMPLETE_DISPATCH): the K = 200 dedup map at the default (the
+# fused align on the plain capture, B3 alone), the generic loop over the
+# per-voxel view, and each of the fused path's switches.
 def complete_cfg(tag: str, tmp: str, load_yaml_file) -> dict:
     """Phase 11's configuration ``tag`` as a loaded YAML tree, read with
     ``load_yaml_file`` (either package's): a copy of the pipeline written
@@ -439,7 +494,7 @@ def complete_cfg(tag: str, tmp: str, load_yaml_file) -> dict:
         return load_yaml_file(os.path.join(HERE, "pipelines", DUALMAP_PIPE), env={})
     if tag == "k64":
         return load_yaml_file(default, env={"MOLA_LOCALMAP_MAX_POINTS_PER_VOXEL": "64"})
-    if tag == "k200 dedup":
+    if tag in ("k200 dedup", "k200 dedup fused"):
         with open(default) as f:
             text = f.read()
         for old, new in (("${MOLA_LOCALMAP_MAX_POINTS_PER_VOXEL|20}", "200"),
@@ -457,7 +512,7 @@ def complete_cfg(tag: str, tmp: str, load_yaml_file) -> dict:
             os.path.join(HERE, "pipelines", "extras", "icp-pipeline_no_motion_model.yaml"), env={})
     elif tag == "one-to-one":
         cfg["icp_settings_with_vel"]["matchers"][0]["params"]["allowMatchAlreadyMatchedGlobalPoints"] = False
-    elif tag not in ("anderson", "full voxel"):
+    elif tag not in ("anderson", "full voxel") + COMPLETE_DISPATCH:
         raise ValueError(tag)
     return cfg
 
@@ -701,19 +756,14 @@ def check_align(name, got, ref):
     return err
 
 
-def align_case(dev, m, local, valid):
-    """The four kernel calls of one main-path align
-    (``ops/icp.py::_align_fused_call``) at phase 3's inputs: B1 at an entry
-    pose off the answer, B3 phase 1 from iteration 0, B2 at the settled pose,
-    B3 phase 2 resuming the iteration count.  Each call's inputs come from
-    the plain twins' outputs; returns the arguments and those outputs."""
+def align_setup(dev, B):
+    """The poses, prior and tables of phase 3's aligns: returns the record
+    ``c`` (entry, info, budget, maxit, gn_inner) and ``(entry, prior, info,
+    thr, kc, budget, statics, zero)``."""
     import torch
 
-    from mola_lidar_odometry_tpu_torch.ops import pallas_capture as pc, pallas_icp as pi, se3
-    from mola_lidar_odometry_tpu_torch.ops.icp import _FUSED_REFRESH_AT
+    from mola_lidar_odometry_tpu_torch.ops import se3
 
-    B = valid.shape[0]
-    P = 8
     # The scan's true pose is the identity (up to the 5 cm point noise).  The
     # align enters 7-13 cm and ~0.4 deg away from it; the last two instances
     # enter 28 cm away, so the twist hook (0.15 m, 0.75 deg from the entry
@@ -732,7 +782,24 @@ def align_case(dev, m, local, valid):
     statics = dict(min_abs_step_trans=1e-4, min_abs_step_rot=5e-5, hook_min_trans=0.15,
                    hook_min_rot=0.0131, gn_inner=2, hook_ref_R=entry.R, hook_ref_t=entry.t)
     zero = torch.zeros((B,), dtype=torch.int32, device=dev)
-    c = dict(P=P, entry=entry, info=info, budget=budget, maxit=maxit, gn_inner=statics["gn_inner"])
+    c = dict(entry=entry, info=info, budget=budget, maxit=maxit, gn_inner=statics["gn_inner"])
+    return c, (entry, prior, info, thr, kc, budget, statics, zero)
+
+
+def align_case(dev, m, local, valid):
+    """The four kernel calls of one main-path align
+    (``ops/icp.py::_align_fused_call``) at phase 3's inputs: B1 at an entry
+    pose off the answer, B3 phase 1 from iteration 0, B2 at the settled pose,
+    B3 phase 2 resuming the iteration count.  Each call's inputs come from
+    the plain twins' outputs; returns the arguments and those outputs."""
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.ops import pallas_capture as pc, pallas_icp as pi, se3
+    from mola_lidar_odometry_tpu_torch.ops.icp import _FUSED_REFRESH_AT
+
+    P = 8
+    c, (entry, prior, info, thr, kc, budget, statics, zero) = align_setup(dev, valid.shape[0])
+    c["P"] = P
     q0 = se3.transform(entry, local).contiguous()
     c["q0"] = q0
     c["args1"] = (m.data, m.voxel_size, m.epoch, q0, P)
@@ -951,68 +1018,184 @@ def phase_kernels(dev):
 WINDOW_KS = (30, 64, 126)  # beside phase 3's K = 20: a full 32-lane window, a 128-lane one, a full one
 
 
-def phase_kernel_windows(dev):
-    """B1 and B2 against their twins on the card, bit for bit, at the
-    windows past 32 points the fused path admits (``2 + K <= stride <=
-    128``): K = 30 (stride 32, full), 64 and 126 (stride 128, the last
-    full), on a ``kernel_inputs`` map filled until the probed voxels hold K
-    points.  B1 captures at an entry pose off the answer, B2 reselects at
-    the answer from B1's rows (the settled pose of an align).  Each time is
-    printed beside its bound: bytes as in phase 3 (the probed rows once, the
-    rows written for B2, the planes; B2 the sectors its selection needs)
-    and operations over the live point words these inputs hold."""
+def capture_bounds(m, q0, valid, P, sectors, words):
+    """B1's and B2's bounds at these inputs (``P`` probes over the 3072
+    queries ``q0``): bytes of the distinct rows B1 probes read once, the
+    rows it writes, the queries and the planes, B2 the ``sectors`` its
+    selection needs (``pallas_capture.reselect_sectors``); operations, ~20
+    a live point word dequantized and ranked (``words``) plus the picks."""
     import torch
 
-    from mola_lidar_odometry_tpu_torch.ops import pallas_capture as pc, se3
     from mola_lidar_odometry_tpu_torch.ops.filters import voxel_coords, voxel_hash
     from mola_lidar_odometry_tpu_torch.ops.voxel_hash import neighbor_coords
 
-    card = torch.cuda.get_device_name(0)
+    B, N = valid.shape
+    npad, dev = 3072, q0.device
+    vs = m.voxel_size.view(B, 1, 1)
+    qp = torch.nn.functional.pad(q0, (0, 0, 0, npad - N))
+    NB = m.data.shape[1]
+    buckets = voxel_hash(neighbor_coords(qp, voxel_coords(qp, vs), vs, P), NB)
+    vm = torch.nn.functional.pad(valid, (0, npad - N))
+    spread = (torch.arange(npad, device=dev)[:, None] * P + torch.arange(P, device=dev)) % NB
+    rows_read = torch.where(vm[..., None], buckets.long(), spread)
+    uniq_rows = int(torch.unique(rows_read + torch.arange(B, device=dev).view(B, 1, 1) * NB).numel())
+    q_bytes, planes, rows = B * N * 3 * 4 + B * N, 4 * B * 2 * P * npad * 4, B * P * npad * 512
+    flops = (words + 2 * B * P * npad) * 20
+    return bound(uniq_rows * 512 + q_bytes + planes + rows, flops), bound(sectors * 32 + 2 * q_bytes + planes, flops)
+
+
+def capture_case(dev, m, local, valid, P, label, recs=None):
+    """B1 and B2 against their twins on the card, bit for bit, at ``P``
+    probes over map ``m``: B1 captures at an entry pose off the answer, B2
+    reselects at the answer from B1's rows (the settled pose of an align).
+    Each time is printed beside its bound (``capture_bounds``).  Raises the
+    records' ``max_abs_err`` in ``recs``; returns how many probes found a
+    way holding more than 32 points."""
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.ops import pallas_capture as pc, se3
+
+    B, N = valid.shape
+    npad = 3072
+    xi = torch.tensor([[0.06 + 0.01 * b, -0.04, 0.02, 0.002, -0.003, 0.006] for b in range(B)], device=dev)
+    q0 = se3.transform(se3.se3_exp(xi), local).contiguous()
+    args1, kw1 = (m.data, m.voxel_size, m.epoch, q0, P), dict(K=m.K, stride=m.stride, valid=valid, return_rows=True)
+    ref1 = pc.capture_planar_plain(*args1, **kw1)
+    got1 = pc.capture_planar(*args1, **kw1)
+    args2, kw2 = (ref1[4], m.voxel_size, m.epoch, local.contiguous(), q0, P), dict(K=m.K, stride=m.stride,
+                                                                                   valid=valid)
+    ref2 = pc.capture_planar_reselect_plain(*args2, **kw2)
+    got2 = pc.capture_planar_reselect(*args2, **kw2)
+    torch.cuda.synchronize()
+    for name, got, ref in (("capture_planar", got1, ref1), ("capture_planar_reselect", got2, ref2)):
+        for i, (g, r) in enumerate(zip(got, ref)):
+            if not torch.equal(g, r):
+                raise AssertionError(f"{name} at {label} output {i} differs from its plain twin in "
+                                     f"{int((g != r).sum())} elements")
+        for rec in recs or ():
+            if rec["name"] == name:
+                rec["max_abs_err"] = max(rec["max_abs_err"], max_err(got, ref))
+    sectors, words = pc.reselect_sectors(ref1[4], m.voxel_size, m.epoch, q0, P, m.K, m.stride)
+    sel = ref1[4].view(B, P, npad, 128 // m.stride, m.stride)[..., 1] & 0xFFFF  # each way's count
+    deep = int((sel > 32).any(dim=-1).sum())
+    ms1 = cuda_graph_ms(pc.capture_launcher(*args1, **kw1)[0], 20)
+    ms2 = cuda_graph_ms(pc.reselect_launcher(*args2, **kw2)[0], 20)
+    pms1 = cuda_ms(lambda: pc.capture_planar_plain(*args1, **kw1), 2)
+    pms2 = cuda_ms(lambda: pc.capture_planar_reselect_plain(*args2, **kw2), 2)
+    b1, b2 = capture_bounds(m, q0, valid, P, sectors, words)
+    paired = float(got1[3][:, :P].sum()) / float(valid.sum())
+    log(f"kernels: {label}: B1 and B2 bit-exact vs plain on {B}x{P}x{npad} probes ({paired:.3f} probed voxels with "
+        f"a candidate per valid query), {deep} of them on a way holding more than 32 points, {words} live point "
+        f"words; B1 {ms1:.4f} ms (plain {pms1:.3f} ms, bound {b1[0]:.4f} ms by {b1[1]}), B2 {ms2:.4f} ms (plain "
+        f"{pms2:.3f} ms, bound {b2[0]:.4f} ms by {b2[1]}, {sectors} sectors) on {torch.cuda.get_device_name(0)}")
+    return deep
+
+
+def phase_kernel_windows(dev):
+    """B1 and B2 against their twins on the card (``capture_case``) at the
+    windows past 32 points the fused path admits (``2 + K <= stride <=
+    128``): K = 30 (stride 32, full), 64 and 126 (stride 128, the last
+    full), 8 probes, on a ``kernel_inputs`` map filled until the probed
+    voxels hold K points."""
     for K in WINDOW_KS:
         m, local, valid = kernel_inputs(dev, seed=K, K=K, fill=K + 2)
-        B, N = valid.shape
-        P, npad = 8, 3072
-        xi = torch.tensor([[0.06 + 0.01 * b, -0.04, 0.02, 0.002, -0.003, 0.006] for b in range(B)], device=dev)
-        q0 = se3.transform(se3.se3_exp(xi), local).contiguous()
-        args1, kw1 = (m.data, m.voxel_size, m.epoch, q0, P), dict(K=m.K, stride=m.stride, valid=valid,
-                                                                 return_rows=True)
-        ref1 = pc.capture_planar_plain(*args1, **kw1)
-        got1 = pc.capture_planar(*args1, **kw1)
-        args2, kw2 = (ref1[4], m.voxel_size, m.epoch, local.contiguous(), q0, P), dict(K=m.K, stride=m.stride,
-                                                                                       valid=valid)
-        ref2 = pc.capture_planar_reselect_plain(*args2, **kw2)
-        got2 = pc.capture_planar_reselect(*args2, **kw2)
-        torch.cuda.synchronize()
-        for name, got, ref in (("B1", got1, ref1), ("B2", got2, ref2)):
-            for i, (g, r) in enumerate(zip(got, ref)):
-                if not torch.equal(g, r):
-                    raise AssertionError(f"{name} at K={K} output {i} differs from its plain twin in "
-                                         f"{int((g != r).sum())} elements")
-        sectors, words = pc.reselect_sectors(ref1[4], m.voxel_size, m.epoch, q0, P, m.K, m.stride)
-        sel = ref1[4].view(B, P, npad, 128 // m.stride, m.stride)[..., 1] & 0xFFFF  # each way's count
-        deep = int((sel > 32).any(dim=-1).sum())
-        ms1 = cuda_graph_ms(pc.capture_launcher(*args1, **kw1)[0], 20)
-        ms2 = cuda_graph_ms(pc.reselect_launcher(*args2, **kw2)[0], 20)
-        pms1 = cuda_ms(lambda: pc.capture_planar_plain(*args1, **kw1), 2)
-        pms2 = cuda_ms(lambda: pc.capture_planar_reselect_plain(*args2, **kw2), 2)
-        vs = m.voxel_size.view(B, 1, 1)
-        qp = torch.nn.functional.pad(q0, (0, 0, 0, npad - N))
-        NB = m.data.shape[1]
-        buckets = voxel_hash(neighbor_coords(qp, voxel_coords(qp, vs), vs, P), NB)
-        vm = torch.nn.functional.pad(valid, (0, npad - N))
-        spread = (torch.arange(npad, device=dev)[:, None] * P + torch.arange(P, device=dev)) % NB
-        rows_read = torch.where(vm[..., None], buckets.long(), spread)
-        uniq_rows = int(torch.unique(rows_read + torch.arange(B, device=dev).view(B, 1, 1) * NB).numel())
-        q_bytes, planes, rows = B * N * 3 * 4 + B * N, 4 * B * 2 * P * npad * 4, B * P * npad * 512
-        flops = (words + 2 * B * P * npad) * 20  # ~20 flops per live word dequantized and ranked, + the picks
-        b1 = bound(uniq_rows * 512 + q_bytes + planes + rows, flops)
-        b2 = bound(sectors * 32 + 2 * q_bytes + planes, flops)
-        log(f"kernels: K={K} (stride {m.stride}): B1 and B2 bit-exact vs plain on {B}x{P}x{npad} probes, "
-            f"{deep} of them on a way holding more than 32 points, {words} live point words; "
-            f"B1 {ms1:.4f} ms (plain {pms1:.3f} ms, bound {b1[0]:.4f} ms by {b1[1]}), B2 {ms2:.4f} ms (plain "
-            f"{pms2:.3f} ms, bound {b2[0]:.4f} ms by {b2[1]}, {sectors} sectors) on {card}")
+        deep = capture_case(dev, m, local, valid, 8, f"K={K} (stride {m.stride})")
         if K > 32 and deep == 0:
             raise AssertionError(f"K={K}: no probed way holds more than 32 points; the inputs miss the deep windows")
+
+
+DISPATCH_K = 200  # a 256-lane slot: the fused align takes the plain capture
+DISPATCH_PROBES = (4, 1)  # B1 and B2 at the probe counts of phase 11's phase1 4-probe and of a 1-probe run
+
+
+def b3_bound(args, iters, gn_inner):
+    """Kernel B3's bound for one launch on ``args`` (align_fused's
+    positional arguments): each input read once and each output written
+    once; ~9 operations a candidate and 18 + 45 a Gauss-Newton step per
+    point, over the iterations these inputs ran (``iters``, each
+    instance's, plus its quality pass)."""
+    planes, pts = args[0], args[1]
+    B, C, npad = planes[0].shape
+    nbytes = B * pts.shape[1] * 13 + 4 * B * C * npad * 4 + 2 * args[8].numel() * 4 + B * 16 * 4
+    return bound(nbytes, (int(iters.sum()) + B) * npad * (C * 9 + 18 + gn_inner * 45))
+
+
+def phase_kernel_dispatch(dev, recs):
+    """Phase 3's parts for the rest of the ICP dispatch (``ops/icp.py``),
+    each kernel against its plain twin on the card, timed from CUDA-graph
+    replays beside the twin and its bound:
+
+    (a) kernel B3 on candidates from the plain per-voxel capture
+        (``voxel_hash.capture``, handed to B3's wrapper as a ``CandSet``,
+        transposed by ``pallas_icp.candset_planes``), the path of maps whose
+        slot spans two rows: a K = 200 map (stride 256) filled until the
+        probed voxels hold up to 200 points, lidar3d-default's 8 x 3072 ICP
+        layer, phase 1 at 8 probes (C = 16) from phase 3's entry poses, then
+        the refresh, a fresh 4-probe capture (C = 8) at phase 1's pose,
+        resuming the iteration count; within ``B3_TOL`` with the same flags;
+    (b) kernels B1 and B2 bit for bit at 4 and 1 probes (the 4-probe phase
+        1 with its reselect, and a 1-probe footprint) on phase 3's K = 20
+        map (``capture_case``).
+
+    Raises the records' ``max_abs_err`` to the largest difference seen."""
+    import torch
+
+    from mola_lidar_odometry_tpu_torch.ops import pallas_icp as pi, se3, voxel_hash as vh
+    from mola_lidar_odometry_tpu_torch.ops.icp import _FUSED_REFRESH_AT
+
+    rec = {r["name"]: r for r in recs}
+    card = torch.cuda.get_device_name(0)
+    m, local, valid = kernel_inputs(dev, seed=DISPATCH_K, K=DISPATCH_K, fill=DISPATCH_K + 2)
+    B, N = valid.shape
+    if m.stride <= 128:
+        raise AssertionError(f"K={DISPATCH_K}: stride {m.stride}; the plain capture's path needs a wider slot")
+    c, (entry, prior, info, thr, kc, budget, statics, zero) = align_setup(dev, B)
+    gn = c["gn_inner"]
+    q0 = se3.transform(entry, local).contiguous()
+    cs0 = vh.capture(m, q0, 8, per_voxel_nn=True)
+    cap_ms = cuda_ms(lambda: pi.candset_planes(vh.capture(m, q0, 8, per_voxel_nn=True)), 3, 1)
+    args_a = (cs0, local, valid, entry.R, entry.t, prior.R, prior.t, info, thr, kc,
+              torch.clamp(budget, max=_FUSED_REFRESH_AT))
+    kw_a = dict(it0=zero, **statics)
+    ref_a = pi.align_fused_plain(*args_a, **kw_a)
+    got_a = pi.align_fused(*args_a, **kw_a)
+    torch.cuda.synchronize()
+    err = check_align(f"B3 on the plain capture at K={DISPATCH_K}, C=16", got_a, ref_a)
+    R1, t1, it1 = ref_a[:3]
+    q1 = se3.transform(se3.Pose(R1, t1), local).contiguous()
+    cs1 = vh.capture(m, q1, 4, per_voxel_nn=True)
+    args_b = (cs1, local, valid, R1, t1, prior.R, prior.t, info, thr, kc, budget - it1)
+    kw_b = dict(it0=it1, **statics)
+    ref_b = pi.align_fused_plain(*args_b, **kw_b)
+    got_b = pi.align_fused(*args_b, **kw_b)
+    torch.cuda.synchronize()
+    err = max(err, check_align(f"B3 on the plain capture at K={DISPATCH_K}, C=8", got_b, ref_b))
+    rec["align_fused"]["max_abs_err"] = max(rec["align_fused"]["max_abs_err"], err)
+    live = cs0.mask.sum(-1)
+    deep = int((m.count() > 126).sum())
+    log(f"kernels: B3 on the plain capture within tolerance of plain (max |dR|,|dt| {err:.3e}): K={DISPATCH_K} "
+        f"(stride {m.stride}, {deep} voxels past 126 points), {B}x{N} points, phase 1 C=16 iterations "
+        f"{ref_a[2].tolist()} hook {ref_a[3].tolist()}, the fresh 4-probe refresh C=8 iterations {ref_b[2].tolist()}; "
+        f"live candidates per query mean {float(live.float().mean()):.2f}")
+    if deep == 0 or not bool(ref_a[3][B - 2:].all()) or int(ref_b[2][: B - 2].min()) <= 0:
+        raise AssertionError("B3 on the plain capture: the inputs need deep voxels, the far entries hooked and a "
+                             "second phase that iterates")
+    for label, args, kw, ref in (("C=16 (phase 1)", args_a, kw_a, ref_a), ("C=8 (the 4-probe refresh)", args_b, kw_b,
+                                                                           ref_b)):
+        planes = pi.candset_planes(args[0])
+        launch = pi.align_launcher(pi.align_geometry(planes[0].shape[2], planes[0].shape[1]), planes, *args[1:],
+                                   **kw)[0]
+        ms = cuda_graph_ms(launch, 10)
+        pms = cuda_ms(lambda: pi.align_fused_plain(*args, **kw), 1, 0)
+        bd = b3_bound((planes,) + args[1:], ref[2], gn)
+        log(f"kernels: B3 on the plain capture {label}: {ms:.4f} ms (plain {pms:.3f} ms, bound {bd[0]:.4f} ms by "
+            f"{bd[1]}), {max(1, int(ref[2].max()))} iterations of the slowest instance, on {card}")
+    log(f"kernels: the plain per-voxel capture at K={DISPATCH_K}, 8 probes, with the transpose into B3's planes "
+        f"(no kernel; what the step runs in place of B1 at this depth): {cap_ms:.3f} ms on {card}")
+
+    m, local, valid = kernel_inputs(dev)
+    for P in DISPATCH_PROBES:
+        capture_case(dev, m, local, valid, P, f"K={m.K}, P={P}", recs)
 
 
 def phase_kernel_match(dev):
@@ -1171,7 +1354,25 @@ def profile_step(fstep, carry, scan):
     return carry, out
 
 
-def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, count_syncs=False, params=None):
+@contextlib.contextmanager
+def call_count(mod, name):
+    """While open, ``mod.name`` counts its calls in the one element of the
+    list it yields."""
+    fn, n = getattr(mod, name), [0]
+
+    def call(*a, **k):
+        n[0] += 1
+        return fn(*a, **k)
+
+    setattr(mod, name, call)
+    try:
+        yield n
+    finally:
+        setattr(mod, name, fn)
+
+
+def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, count_syncs=False, params=None,
+              f64=False):
     """Step the B=8 fleet of ``pipeline`` (a path under pipelines/, or a
     loaded YAML tree) through ``scans`` on the kernels
     with every launch count set to 0 just before and read just after;
@@ -1182,11 +1383,13 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, 
     calls (and is left out of the rate); after the counts are read, each
     recorded call is held against its plain twin at this path's own shapes.
     ``params`` are set in the pipeline's ``params`` block; ``sizing`` may
-    also hold spec_from_yaml's ICP overrides."""
+    also hold spec_from_yaml's ICP overrides.  With ``f64`` the final-pose
+    GT error is the float64 figure (``gt_error_f64``), else float32."""
     import torch
 
     from mola_lidar_odometry_tpu_torch.models import step as step_mod
     from mola_lidar_odometry_tpu_torch.models.spec import spec_from_yaml
+    from mola_lidar_odometry_tpu_torch.ops import icp as icp_ops
     from mola_lidar_odometry_tpu_torch.parallel import batch as pb
     from mola_lidar_odometry_tpu_torch.utils.config import load_yaml_file
 
@@ -1205,25 +1408,26 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, 
     for r in recs:
         r["wrapper"].launches = 0
     outs, secs, syncs, calls = [], [], None, []
-    for k in range(n_scans - 1):
-        counted = count_syncs and k == n_scans - 2
-        with flagged_syncs(counted) as hits, recording(recs, calls) if counted else contextlib.nullcontext():
-            t1 = time.time()
-            carry, out = fstep(carry, seq[k])
-            torch.cuda.synchronize()
-        if counted:
-            syncs = len(hits)
-            sites = collections.Counter(f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in hits)
-        else:
-            secs.append(time.time() - t1)
-        outs.append(out)
-    carry, out = profile_step(fstep, carry, seq[-1])  # the last frame, under the profiler
+    with call_count(icp_ops, "align") as aligns:
+        for k in range(n_scans - 1):
+            counted = count_syncs and k == n_scans - 2
+            with flagged_syncs(counted) as hits, recording(recs, calls) if counted else contextlib.nullcontext():
+                t1 = time.time()
+                carry, out = fstep(carry, seq[k])
+                torch.cuda.synchronize()
+            if counted:
+                syncs = len(hits)
+                sites = collections.Counter(f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in hits)
+            else:
+                secs.append(time.time() - t1)
+            outs.append(out)
+        carry, out = profile_step(fstep, carry, seq[-1])  # the last frame, under the profiler
     outs.append(out)
     launches = {r["name"]: r["wrapper"].launches for r in recs}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # the recorded calls' inputs, cloned, stay on the card until they are checked
     held_gb = sum(t.numel() * t.element_size() for c in calls for t in _tensors(c[1:]) if t.is_cuda) / 1e9
-    LAST_PROFILE.update(peak_gb=peak_gb, recorded_gb=held_gb)
+    LAST_PROFILE.update(peak_gb=peak_gb, recorded_gb=held_gb, aligns=aligns[0])
 
     q = torch.stack([o.quality for o in outs]).cpu().numpy()
     accepted = torch.stack([o.accepted for o in outs]).cpu().numpy()
@@ -1232,7 +1436,7 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, 
     drops = int(torch.stack([o.map_collision_drops for o in outs]).sum())
     iters = torch.stack([o.iterations for o in outs]).cpu().numpy()
     corr = int(torch.stack([o.corrections for o in outs]).sum())
-    gt_err = gt_error(traj, n_scans - 1, carry.pose_R[0].cpu(), carry.pose_t[0].cpu())
+    gt_err = (gt_error_f64 if f64 else gt_error)(traj, n_scans - 1, carry.pose_R[0].cpu(), carry.pose_t[0].cpu())
     icp_cap = widths[spec.icp_local_layer]
     map_cap = widths[spec.map_inserts[0].input_layer]
     warm = 2  # frame 0 seeds the map, frame 1 is the first ICP on it
@@ -1240,7 +1444,8 @@ def run_fleet(dev, recs, tag, pipeline, sizing, scans, traj, guards, map_names, 
     card = torch.cuda.get_device_name(0)
     log(f"{tag}: per-step seconds {[round(s, 4) for s in secs]}")
     log(f"{tag}: mean quality (frames > 0) {q[1:].mean():.4f}; iterations per frame {iters[:, 0].tolist()}; "
-        f"twist corrections {corr}; final-pose GT error {gt_err:.4f}; icp layer max {int(nicp.max())}/{icp_cap}; "
+        f"twist corrections {corr}; final-pose GT error {gt_err:.4f}{' (float64)' if f64 else ''}; "
+        f"icp layer max {int(nicp.max())}/{icp_cap}; "
         f"map layer max {int(nmap.max())}/{map_cap}; collision drops {drops}/{int(nmap.sum())} "
         f"over {len(map_names)} map(s)")
     log(f"{tag}: {sps:.2f} scans/s over frames {warm}..{len(secs) - 1} (B={BATCH}) on {card}; "
@@ -1302,6 +1507,15 @@ def phase_sizing(scans):
 def gt_error(traj, k, R, t) -> float:
     """Gauge-aligned SE(3) log-norm error of pose k (relative to frame 0)."""
     from mola_lidar_odometry_tpu_torch.apps.cross_pipeline import gt_error as error
+
+    return error(traj, k, R, t)
+
+
+def gt_error_f64(traj, k, R, t) -> float:
+    """The same error in float64 (ROADMAP C16: the float32 figure moves by
+    up to ~0.03 near 1-3 mrad), as tests/phase11_jax_figures.py computes
+    the JAX figures phase 11 holds."""
+    from mola_lidar_odometry_tpu_torch.apps.cross_pipeline import gt_error_f64 as error
 
     return error(traj, k, R, t)
 
@@ -2004,7 +2218,20 @@ def phase_surface(dev, recs, scans, traj):
 # paths, ROADMAP C6's paths, the float64 oracle, the fleet split
 # ---------------------------------------------------------------------------
 
-COMPLETE_KERNELS = {"k64": MAIN_KERNELS}  # the others run the generic loop on B4
+# Each fused-dispatch path's launches of every kernel per align (a step
+# that re-enters for a twist correction aligns again); "per-voxel generic"
+# runs the generic loop, B4 a launch an iteration.
+DISPATCH_LAUNCHES = {
+    "k200 dedup fused": dict(capture_planar=0, capture_planar_reselect=0, align_fused=2, nn_select=0),
+    "per-voxel generic": dict(capture_planar=0, capture_planar_reselect=0, align_fused=0),
+    "capture off": dict(capture_planar=0, capture_planar_reselect=0, align_fused=2, nn_select=0),
+    "phase1 4-probe": dict(capture_planar=1, capture_planar_reselect=1, align_fused=2, nn_select=0),
+    "fresh refresh": dict(capture_planar=2, capture_planar_reselect=0, align_fused=2, nn_select=0),
+    "single phase": dict(capture_planar=1, capture_planar_reselect=0, align_fused=1, nn_select=0),
+}
+# the kernels each path must launch (the others run the generic loop on B4)
+COMPLETE_KERNELS = dict({"k64": MAIN_KERNELS}, **{tag: tuple(k for k, n in per.items() if n) or DUALMAP_KERNELS
+                                                  for tag, per in DISPATCH_LAUNCHES.items()})
 # How far phase 11 (c)'s figures may read from ORACLE_FIGURES: the port's
 # engine on the card parts from the JAX package's on the CPU by a few
 # millimetres over these scans (phase 4's GT error 0.1847 against 0.1849),
@@ -2013,6 +2240,9 @@ COMPLETE_KERNELS = {"k64": MAIN_KERNELS}  # the others run the generic loop on B
 # 1e-6.
 ORACLE_MARGIN = dict(pose=0.01, ate_share=0.005, gt=1e-6)
 FLEET_SPLIT_SCANS = 4
+# Phase 11's paths held to the spreads of the JAX figures alone, without the
+# bench's 0.9 / 0.20: C6's paths, whose own GT errors sit at 0.02-0.21.
+SPREADS_ONLY = ("no motion model", "anderson", "one-to-one")
 
 
 def phase_complete(dev, recs, scans, traj, tags=COMPLETE, rest=True):
@@ -2043,19 +2273,16 @@ def phase_complete(dev, recs, scans, traj, tags=COMPLETE, rest=True):
         if sizing != COMPLETE_SIZING[tag]:
             raise AssertionError(f"{tag}: the port derives {sizing}, the JAX package {COMPLETE_SIZING[tag]}")
         # the ICP knobs go through spec_from_yaml's overrides, as a user's call does
-        knobs = dict(per_voxel_nn=False) if tag in COMPLETE_FULL_VOXEL else {}
-        if tag in COMPLETE_ANDERSON:
-            knobs["anderson_m"] = COMPLETE_ANDERSON[tag]
+        knobs = COMPLETE_KNOBS.get(tag, {})
         drops, offered = COMPLETE_DROPS[tag]
-        # (a) and (b) as phase 4 is guarded, and within the spreads of the
-        # JAX figures; C6's paths within the spreads (their own GT errors
-        # sit at 0.02-0.21, so the bench's 0.20 is no bound on them)
-        guards = reference_guards(tag) if tag in ("k64", "k200 dedup") + COMPLETE_FULL_VOXEL else spread_guards(tag)
+        # (a), (b) and the other paths as phase 4 is guarded, and within the
+        # spreads of the JAX figures; SPREADS_ONLY within the spreads alone
+        guards = spread_guards(tag) if tag in SPREADS_ONLY else reference_guards(tag)
         guards["max_drop_share"] = max(1e-3, drops / offered + DROP_SPREAD) if drops else 1e-3
         kernels = COMPLETE_KERNELS.get(tag, DUALMAP_KERNELS)
         map_names = tuple(d.name for d in spec_from_yaml(cfg).map_layers)
         sps, here, _, carry = run_fleet(dev, recs, tag, cfg, dict(sizing, **knobs), scans, traj,
-                                        dict(guards, kernels=kernels), map_names, count_syncs=True)
+                                        dict(guards, kernels=kernels), map_names, count_syncs=True, f64=True)
         m = carry.maps["localmap"]
         spec = spec_from_yaml(cfg, **knobs)
         icp = spec.icp_with_vel
@@ -2063,10 +2290,12 @@ def phase_complete(dev, recs, scans, traj, tags=COMPLETE, rest=True):
             f"{spec.map_layers[0].min_distance_between_points}; ICP: Horn "
             f"{icp.horn is not None}, Anderson depth {icp.anderson_m}, one-to-one "
             f"{not icp.matchers[0].allow_match_already_matched}, per_voxel_nn {icp.per_voxel_nn}, "
-            f"{icp.nn_neighbors} probes; sized {json.dumps(sizing)} (= the JAX package's)")
+            f"{icp.nn_neighbors} probes; overrides {knobs}; sized {json.dumps(sizing)} (= the JAX package's)")
         print_reference(tag, guards)
         if tag in COMPLETE_FULL_VOXEL:
             full_voxel_summary(tag, spec, carry, sps, here)
+        if tag in COMPLETE_DISPATCH:
+            dispatch_summary(tag, sps, here)
         launches.update(here)
     if rest:
         launches.update(phase_oracle(dev, recs, scans, traj))
@@ -2090,6 +2319,25 @@ def full_voxel_summary(tag, spec, carry, sps, launches):
     fused = {k: launches[k] for k in MAIN_KERNELS if launches[k]}
     if fused:
         raise AssertionError(f"{tag}: the full-voxel path launched {fused}; it must run the generic loop alone")
+
+
+def dispatch_summary(tag, sps, launches):
+    """A fused-dispatch path's figures (scans/s, device ops and launches a
+    step, launches per align, peak memory), its launches per align held to
+    DISPATCH_LAUNCHES."""
+    import torch
+
+    aligns = LAST_PROFILE["aligns"]
+    per = {k: v / max(aligns, 1) for k, v in launches.items()}
+    log(f"{tag}: {sps:.2f} scans/s (B={BATCH}), {LAST_PROFILE['device_ops']} device ops in the profiled last step, "
+        f"launches a step {({k: v / N_SCANS for k, v in launches.items()})}, {aligns} aligns over {N_SCANS} steps, "
+        f"launches per align {per}, max_memory_allocated {LAST_PROFILE['peak_gb']:.3f} GB over the steps, "
+        f"{LAST_PROFILE['peak_gb'] - LAST_PROFILE['recorded_gb']:.3f} GB without the recorded calls' copies, "
+        f"on {torch.cuda.get_device_name(0)}")
+    off = {k: per[k] for k, n in DISPATCH_LAUNCHES[tag].items() if launches[k] != n * aligns}
+    if off or aligns < N_SCANS - 1:
+        raise AssertionError(f"{tag}: launches per align {off} over {aligns} aligns, expected "
+                             f"{DISPATCH_LAUNCHES[tag]}")
 
 
 def phase_oracle(dev, recs, scans, traj):
@@ -2232,24 +2480,46 @@ def point_meshes():
     return [[["cuda:0", "cuda:0"]]]
 
 
-def phase_point_axis(dev, scans, traj):
-    """Phase 12: lidar3d-default then lidar3d-dual-map through the point
-    axis on each of :func:`point_meshes` against the one-process fleet on
-    the first card (see the module docstring).  Returns each kernel's
+POINT_PATHS = ("default", "dual-map", "full voxel", "k200 dedup fused")
+POINT_EXACT = ("default",)  # bit for bit; the others' integers exact and poses within POINT_POSE_TOL
+
+
+def point_path(tag: str, tmp: str):
+    """Phase 12's path ``tag``: (the loaded YAML tree, its sizing, its ICP
+    overrides).  "full voxel" is lidar3d-default without the per-voxel view
+    (the generic loop on B4 at C = 160); "k200 dedup fused" phase 11's K =
+    200 dedup map at the default (the fused align on the plain capture)."""
+    from mola_lidar_odometry_tpu_torch.utils.config import load_yaml_file
+
+    if tag == "dual-map":
+        return load_yaml_file(os.path.join(HERE, "pipelines", DUALMAP_PIPE), env={}), DUALMAP_SIZING, {}
+    if tag == "k200 dedup fused":
+        return complete_cfg(tag, tmp, load_yaml_file), COMPLETE_SIZING[tag], {}
+    cfg = load_yaml_file(os.path.join(HERE, "pipelines", "lidar3d-default.yaml"), env={})
+    return cfg, SIZING, (COMPLETE_KNOBS[tag] if tag == "full voxel" else {})
+
+
+def phase_point_axis(dev, scans, traj, tags=POINT_PATHS):
+    """Phase 12: the paths ``tags`` (lidar3d-default, lidar3d-dual-map, and
+    ROADMAP C14's: lidar3d-default without the per-voxel view, and the K =
+    200 dedup map on the fused align over the plain capture) through the
+    point axis on each of :func:`point_meshes` against the one-process fleet
+    on the first card (see the module docstring).  Returns each kernel's
     launches in the cells."""
+    import tempfile
+
     import torch
 
     from mola_lidar_odometry_tpu_torch.models.spec import spec_from_yaml
     from mola_lidar_odometry_tpu_torch.parallel import batch as pb
-    from mola_lidar_odometry_tpu_torch.utils.config import load_yaml_file
 
     t_phase = time.time()
     launches = collections.Counter()
     sub = scans[:POINT_SCANS]
-    for tag, pipe, sizing in (("default", "lidar3d-default.yaml", SIZING),
-                              ("dual-map", DUALMAP_PIPE, DUALMAP_SIZING)):
-        spec = spec_from_yaml(load_yaml_file(os.path.join(HERE, "pipelines", pipe), env={}), kf_ring_capacity=256,
-                              **sizing)
+    for tag in tags:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg, sizing, knobs = point_path(tag, tmp)
+        spec = spec_from_yaml(cfg, kf_ring_capacity=256, **sizing, **knobs)
         for mesh in point_meshes():
             F, P = len(mesh), len(mesh[0])
             fstep = pb.make_fleet_step(spec)
@@ -2281,7 +2551,7 @@ def phase_point_axis(dev, scans, traj):
             worst = 0.0
             for k, (g, r) in enumerate(zip(got, ref)):
                 for f in r:
-                    exact = tag == "default" or f in POINT_INTEGERS or f == "stamp"
+                    exact = tag in POINT_EXACT or f in POINT_INTEGERS or f == "stamp"
                     d = np.abs(getattr(g, f).astype(np.float64) - r[f].astype(np.float64))
                     if exact and not np.array_equal(getattr(g, f), r[f]):
                         raise AssertionError(f"point axis {tag} {F}x{P}: {f} at scan {k} differs from the "
@@ -2296,7 +2566,7 @@ def phase_point_axis(dev, scans, traj):
             per_step = {kind: [list(c.get(kind, (0, 0))) for c in colls] for kind in ("all_reduce", "all_gather")}
             log(f"point axis {tag}: fleet {F} x point {P} over {backend} on {sorted({d for row in mesh for d in row})}, "
                 f"{spec.raw_capacity // P} points of each scan per cell: "
-                + ("every output equals the one-process fleet's bit for bit" if tag == "default" else
+                + ("every output equals the one-process fleet's bit for bit" if tag in POINT_EXACT else
                    f"every integer output equals the one-process fleet's, poses within {worst:.3g} "
                    f"(bound {POINT_POSE_TOL})")
                 + f" over {len(sub)} scans; map replicas equal on every cell after every scan")
@@ -2680,6 +2950,27 @@ def phase_full_voxel(dev, seq_scans, seq_traj):
     return launches
 
 
+def phase_dispatch(dev, seq_scans, seq_traj):
+    """The dispatch parts of phases 3, 11 and 12 alone: B3 on the plain
+    capture and B1/B2 at 4 and 1 probes, phase 11's "k200 dedup" and
+    COMPLETE_DISPATCH paths over the first N_SCANS scans, and phase 12's
+    two C14 paths.  Returns each kernel's launches."""
+    from mola_lidar_odometry_tpu_torch.apps import bench_sequence as bs
+    from mola_lidar_odometry_tpu_torch.apps.profile_stages import kernel_wrappers
+
+    wrappers = kernel_wrappers()
+    names = {"B1": "capture_planar", "B2": "capture_planar_reselect", "B3": "align_fused", "B4": "nn_select"}
+    recs = [dict(name=names[k], wrapper=w, max_abs_err=0.0) for k, w in wrappers.items()]
+    phase_kernel_dispatch(dev, recs)
+    scans, traj = seq_scans[:N_SCANS], bs.head(seq_traj, N_SCANS)
+    launches = collections.Counter(phase_complete(dev, recs, scans, traj, tags=("k200 dedup",) + COMPLETE_DISPATCH,
+                                                  rest=False))
+    launches.update(phase_point_axis(dev, scans, traj, tags=POINT_PATHS[2:]))
+    log(f"dispatch: launches {dict(launches)}; max |d| against the twins "
+        f"{ {r['name']: r['max_abs_err'] for r in recs} }")
+    return launches
+
+
 def simulate(n: int):
     """The first ``n`` scans of the bench's sequence (apps/bench_sequence.py),
     simulated by one spawned process per CPU core."""
@@ -2702,13 +2993,18 @@ def main():
     ap.add_argument("--only-tools", action="store_true", help="phases 1, 2 and 13 only (no kernels line)")
     ap.add_argument("--only-full-voxel", action="store_true",
                     help="phases 1, 2 and the full-voxel parts of 3, 11 and 13 (c) only (no kernels line)")
+    ap.add_argument("--only-dispatch", action="store_true",
+                    help="phases 1, 2 and the ICP dispatch's parts of 3, 11 and 12 only (no kernels line)")
     args = ap.parse_args()
     phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    if args.only_point_axis or args.only_tools or args.only_full_voxel:
-        if args.only_full_voxel:
+    if args.only_point_axis or args.only_tools or args.only_full_voxel or args.only_dispatch:
+        if args.only_dispatch:
+            launches = phase_dispatch("cuda", *simulate(N_SCANS))
+            never = [k for k in MAIN_KERNELS + DUALMAP_KERNELS if launches.get(k, 0) <= 0]
+        elif args.only_full_voxel:
             launches = phase_full_voxel("cuda", *simulate(CROSS_FRAMES))
             never = [k for k in DUALMAP_KERNELS if launches.get(k, 0) <= 0]
         elif args.only_point_axis:
@@ -2728,6 +3024,7 @@ def main():
     phase_kernel_windows("cuda")
     recs.append(phase_kernel_match("cuda"))
     phase_kernel_match_full_voxel("cuda", recs[-1])
+    phase_kernel_dispatch("cuda", recs)
     phase_paths("cuda", recs, *simulate(TOOL_SCANS))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

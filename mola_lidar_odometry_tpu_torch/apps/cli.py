@@ -14,11 +14,16 @@ Port of ``mola_lidar_odometry_tpu/apps/cli.py``: the same flags, plus
 the environment) pin them, the other one taking the JAX CLI's default
 (131072 raw points, 262144 map slots); with none of them every buffer and
 the map's insert budget are derived from the first scan
-(``utils/capacity.py``).  ``--per-voxel-nn``, ``--nn-neighbors`` and
-``--icp-anderson`` set the ICP knobs the JAX CLI reads from
-``MOLA_TPU_PER_VOXEL_NN``, ``MOLA_TPU_NN_NEIGHBORS`` and
-``MOLA_TPU_ICP_ANDERSON``; unset, each flag takes its variable's value,
-so the same environment gives both CLIs the same algorithm.
+(``utils/capacity.py``).  ``--per-voxel-nn``, ``--nn-neighbors``,
+``--icp-anderson``, ``--fused-align``, ``--capture-kernel``,
+``--phase1-neighbors``, ``--refresh-reselect``, ``--refresh-neighbors`` and
+``--fused-refresh`` set the ICP knobs the JAX CLI reads from
+``MOLA_TPU_PER_VOXEL_NN``, ``MOLA_TPU_NN_NEIGHBORS``,
+``MOLA_TPU_ICP_ANDERSON``, ``MOLA_TPU_PALLAS``, ``MOLA_TPU_PALLAS_CAPTURE``,
+``MOLA_TPU_PHASE1_NEIGHBORS``, ``MOLA_TPU_REFRESH_RESELECT``,
+``MOLA_TPU_REFRESH_NEIGHBORS`` and ``MOLA_TPU_FUSED_REFRESH``; unset, each
+flag takes its variable's value, so the same environment gives both CLIs
+the same algorithm.
 
 Usage:
     python -m mola_lidar_odometry_tpu_torch.apps.cli \
@@ -101,16 +106,36 @@ def build_parser() -> argparse.ArgumentParser:
                         "pipelines, 27 for the others")
     e.add_argument("--icp-anderson", type=int, default=os.environ.get("MOLA_TPU_ICP_ANDERSON"),
                    help="Anderson acceleration depth of the ICP loop (0 = off, the default)")
+    # the fused align's switches (the JAX package's A/B variables)
+    e.add_argument("--fused-align", type=int, choices=(0, 1), default=os.environ.get("MOLA_TPU_PALLAS"),
+                   help="1: the fused two-phase align where the ICP block allows it (the default); 0: the generic "
+                        "ICP loop over the same candidates")
+    e.add_argument("--capture-kernel", type=int, choices=(0, 1), default=os.environ.get("MOLA_TPU_PALLAS_CAPTURE"),
+                   help="1: the fused align captures with its kernel up to 126 points per voxel (the default); 0: "
+                        "with the plain per-voxel capture, refreshed by a fresh capture")
+    e.add_argument("--phase1-neighbors", type=int, default=os.environ.get("MOLA_TPU_PHASE1_NEIGHBORS"),
+                   help="voxels probed by the fused align's first capture (1, 4, 8 or 27; default all of "
+                        "--nn-neighbors)")
+    e.add_argument("--refresh-reselect", type=int, choices=(0, 1), default=os.environ.get("MOLA_TPU_REFRESH_RESELECT"),
+                   help="1: the fused align's refresh re-ranks the first capture's rows (the default); 0: a fresh "
+                        "capture at the settled pose")
+    e.add_argument("--refresh-neighbors", type=int, default=os.environ.get("MOLA_TPU_REFRESH_NEIGHBORS"),
+                   help="voxels probed by a fresh refresh (default 4 when the first capture probes 8, else as many)")
+    e.add_argument("--fused-refresh", type=int, choices=(0, 1), default=os.environ.get("MOLA_TPU_FUSED_REFRESH"),
+                   help="1: the fused align refreshes its candidates after 8 iterations (the default); 0: one phase")
     return p
+
+
+SWITCHES = ("per_voxel_nn", "fused_align", "capture_kernel", "refresh_reselect", "fused_refresh")  # the 0/1 flags
 
 
 def icp_overrides(args) -> dict:
     """The ICP knobs given (by flag or environment) as ``spec_from_yaml``
     overrides."""
-    knobs = dict(per_voxel_nn=args.per_voxel_nn, nn_neighbors=args.nn_neighbors, anderson_m=args.icp_anderson)
-    if knobs["per_voxel_nn"] is not None:
-        knobs["per_voxel_nn"] = bool(knobs["per_voxel_nn"])
-    return {k: v for k, v in knobs.items() if v is not None}
+    from mola_lidar_odometry_tpu_torch.models.spec import ICP_KNOBS
+
+    knobs = {k: getattr(args, "icp_anderson" if k == "anderson_m" else k) for k in ICP_KNOBS}
+    return {k: bool(v) if k in SWITCHES else v for k, v in knobs.items() if v is not None}
 
 
 def make_dataset(args):

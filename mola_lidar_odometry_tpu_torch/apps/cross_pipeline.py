@@ -19,12 +19,15 @@ float32 figure; beside it the same in float64 (``gt_error_f64``).
 By default the port runs the JAX package's TPU algorithm (the per-voxel
 capture).  ``--per-voxel-nn 0`` runs what the JAX script runs on a CPU by
 default: every point of each probed voxel, the generic ICP loop.
+``--fused-align 0`` runs the JAX package's ``MOLA_TPU_PALLAS=0`` algorithm:
+the per-voxel capture, the generic ICP loop.
 
 Usage:
     python -m mola_lidar_odometry_tpu_torch.apps.cross_pipeline [--frames 12] [--pipelines a.yaml ...]
     python -m mola_lidar_odometry_tpu_torch.apps.cross_pipeline --device cpu --frames 3 --rings 16 --azimuth 512 \\
         --pipelines lidar3d-default.yaml
     python -m mola_lidar_odometry_tpu_torch.apps.cross_pipeline --per-voxel-nn 0   # the JAX script's CPU algorithm
+    python -m mola_lidar_odometry_tpu_torch.apps.cross_pipeline --fused-align 0    # MOLA_TPU_PALLAS=0
 """
 
 from __future__ import annotations
@@ -99,7 +102,7 @@ def run_pipeline(path: str, scans, traj, intens, caps: dict, device, log=None, *
     frame (each frame's wall time, the readback included).  The errors are
     the JAX script's float32 figure (``errors``, ``worst``) and the same in
     float64 (``errors_f64``, ``worst_f64``).  ``knobs`` are ICP overrides of
-    ``spec_from_yaml`` (``per_voxel_nn``, ``nn_neighbors``, ``anderson_m``)."""
+    ``spec_from_yaml`` (``models/spec.py::ICP_KNOBS``)."""
     from mola_lidar_odometry_tpu_torch.models.odometry import LidarOdometry
 
     lo = LidarOdometry.from_yaml_file(path, device=device, **caps, **knobs)
@@ -134,6 +137,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--per-voxel-nn", type=int, choices=(0, 1), default=1,
                     help="0: every point of each probed voxel, the generic ICP loop (the JAX script's CPU default)")
+    ap.add_argument("--fused-align", type=int, choices=(0, 1), default=1,
+                    help="0: the generic ICP loop over the per-voxel capture (the JAX package's MOLA_TPU_PALLAS=0)")
     return ap
 
 
@@ -151,7 +156,7 @@ def main(argv=None) -> list:
     rows = []
     for name in args.pipelines:
         r = run_pipeline(os.path.join(ROOT, name), scans, traj, intens, caps, args.device, log=sys.stderr,
-                         per_voxel_nn=bool(args.per_voxel_nn))
+                         per_voxel_nn=bool(args.per_voxel_nn), fused_align=bool(args.fused_align))
         rows.append(r)
         print(f"{name}: worst={r['worst']:.3f} (float64 {r['worst_f64']:.3f}; "
               f"{np.mean(r['secs'][1:] or r['secs']):.3f} s/frame after frame 0)", flush=True)

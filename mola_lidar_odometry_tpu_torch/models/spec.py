@@ -10,15 +10,23 @@ dynamic variables.
 Unlike the JAX package, the library reads no ``MOLA_TPU_*`` environment
 variable.  By default every ICP block gets the algorithm the JAX package
 runs on a TPU (per-voxel top-2 capture, fused two-phase align, refresh by
-reselect, 8 probes for single-matcher configs and 27 for multi-matcher
-ones), the insert budget follows the "auto" rule, and capacities come from
-the caller.  Three ICP knobs of the JAX package are overrides of
-:func:`spec_from_yaml`, applied to both ICP blocks: ``per_voxel_nn``
-(``MOLA_TPU_PER_VOXEL_NN``; ``False`` is the JAX package's default on every
-backend but a TPU: every point of each probed voxel, the generic loop),
-``nn_neighbors`` (``MOLA_TPU_NN_NEIGHBORS``: 8 or 27 probes) and
-``anderson_m`` (``MOLA_TPU_ICP_ANDERSON``).  The CLI (``apps/cli.py``) reads
-those variables as the defaults of its flags.
+reselect where kernel B1 captures and by a fresh 4-probe capture where the
+voxels are deeper than one 128-lane row holds, 8 probes for single-matcher
+configs and 27 for multi-matcher ones), the insert budget follows the
+"auto" rule, and capacities come from the caller.  Nine ICP switches of the
+JAX package are overrides of :func:`spec_from_yaml` (``ICP_KNOBS``),
+applied to both ICP blocks (``ops/icp.py::IcpConfig`` names each one's
+variable): ``per_voxel_nn`` (``MOLA_TPU_PER_VOXEL_NN``; ``False`` is the
+JAX package's default on every backend but a TPU: every point of each
+probed voxel, the generic loop), ``nn_neighbors``
+(``MOLA_TPU_NN_NEIGHBORS``: 8 or 27 probes), ``anderson_m``
+(``MOLA_TPU_ICP_ANDERSON``), ``fused_align`` (``MOLA_TPU_PALLAS``),
+``capture_kernel`` (``MOLA_TPU_PALLAS_CAPTURE``), ``phase1_neighbors``
+(``MOLA_TPU_PHASE1_NEIGHBORS``), ``refresh_reselect``
+(``MOLA_TPU_REFRESH_RESELECT``), ``refresh_neighbors``
+(``MOLA_TPU_REFRESH_NEIGHBORS``) and ``fused_refresh``
+(``MOLA_TPU_FUSED_REFRESH``).  The CLI (``apps/cli.py``) reads those
+variables as the defaults of its flags.
 
 The reference's host-side block (sensor labels, the worker queue,
 multi-LiDAR merging, trajectory and debug-trace files, map loading and
@@ -267,16 +275,22 @@ def _map_layers_from_yaml(gen_list, num_slots: int) -> Tuple[MapLayerDef, ...]:
     return tuple(defs)
 
 
+# the JAX package's ICP switches that spec_from_yaml takes as overrides of
+# both ICP blocks (ops/icp.py::IcpConfig names each one's MOLA_TPU_* variable)
+ICP_KNOBS = ("per_voxel_nn", "nn_neighbors", "anderson_m", "fused_align", "capture_kernel", "phase1_neighbors",
+             "refresh_reselect", "refresh_neighbors", "fused_refresh")
+
+
 def spec_from_yaml(cfg: dict, **overrides) -> OdometrySpec:
     """Build an :class:`OdometrySpec` from a loaded pipeline YAML dict.
 
     ``overrides`` replaces top-level spec fields (CLI flags beat YAML, like
     the reference's apps/mola-lidar-odometry-cli.cpp:391-399), except
-    ``per_voxel_nn``, ``nn_neighbors`` and ``anderson_m``, which replace
-    those fields of both ICP blocks (None leaves the default).
+    ``ICP_KNOBS``, which replace those fields of both ICP blocks (None
+    leaves the default).
     """
     params = cfg.get("params", {}) or {}
-    icp_knobs = {k: overrides.pop(k) for k in ("per_voxel_nn", "nn_neighbors", "anderson_m") if k in overrides}
+    icp_knobs = {k: overrides.pop(k) for k in ICP_KNOBS if k in overrides}
     icp_knobs = {k: v for k, v in icp_knobs.items() if v is not None}
 
     raw_capacity = int(overrides.pop("raw_capacity", 1 << 17))

@@ -4,31 +4,42 @@ Port of ``mola_lidar_odometry_tpu/ops/icp.py``.  Configurations that take
 the JAX package's fully fused path (``_fused_eligible``: one point-to-point
 matcher with one pairing per point, capture-once under the twist hook, no
 Horn stage and no Anderson acceleration — the shipped lidar3d-default hot
-path) run, for the whole fleet at once:
+path), with ``fused_align`` and ``per_voxel_nn`` on, run for the whole
+fleet at once (``_align_fused_call``):
 
-  1. kernel B1 at the entry pose (top-2 per probed voxel; rows kept);
+  1. the capture at the entry pose (top-2 per probed voxel);
   2. kernel B3 for up to ``_FUSED_REFRESH_AT`` iterations;
-  3. kernel B2: re-rank the kept rows against the settled pose;
+  3. the refresh at the settled pose;
   4. kernel B3 for the rest of the budget, resuming the iteration count.
 
-The JAX package runs phase 2 under ``lax.cond(need2)``; here it is one
-batched launch for every instance, and ``need2`` selects per instance which
-result stands.
+The capture is kernel B1 (its bucket rows kept) when ``capture_kernel`` is
+on and the map's slot fits one 128-lane row (stride <= 128: up to 126
+points per voxel); the refresh then re-ranks those rows on kernel B2.
+Otherwise (deeper voxels, or ``capture_kernel`` off) the capture is the
+plain per-voxel capture (``voxel_hash.capture``), whose candidates B3 takes
+after one transpose (``pallas_icp.candset_planes``), and the refresh is a
+fresh capture at the settled pose over ``refresh_neighbors`` probes (4
+when phase 1 probes 8).  ``phase1_neighbors``, ``refresh_reselect``,
+``refresh_neighbors`` and ``fused_refresh`` are the JAX package's A/B
+switches of this path.  The JAX package runs phase 2 under
+``lax.cond(need2)``; here it is one batched launch for every instance, and
+``need2`` selects per instance which result stands.
 
 Every other configuration (several matchers, ``runFromIteration`` /
 ``runUpToIteration``, ``thresholdAngularDeg``, two pairings per point,
-one-to-one pairing, a Horn stage, Anderson acceleration, no hook) runs the
-generic loop of the JAX package's ``align``: per iteration, every matcher
-pairs its local layer against its cached (or, without the hook, re-captured)
-candidates, the block Gauss-Newton solver (or Horn while coarse) updates the
-pose, and the exits are tested.  The JAX loop is a ``lax.while_loop`` under
-``vmap``: the body runs while any instance is live and each instance's state
-freezes when its own condition turns false.  Here the state carries the
-fleet dimension, ``live`` is a ``(B,)`` mask that selects new or old state,
-and the loop's exit test ``live.any()`` is one host sync per iteration.
-Every single-pairing point-to-point matcher on a point map matches through
-kernel B4 (``pallas_match.nn_select``) on planar candidates; NDT layers
-pair with their voxel means and planes (``ops/ndt.py``).
+one-to-one pairing, a Horn stage, Anderson acceleration, no hook, and
+``fused_align`` or ``per_voxel_nn`` off) runs the generic loop of the JAX
+package's ``align``: per iteration, every matcher pairs its local layer
+against its cached (or, without the hook, re-captured) candidates, the
+block Gauss-Newton solver (or Horn while coarse) updates the pose, and the
+exits are tested.  The JAX loop is a ``lax.while_loop`` under ``vmap``: the
+body runs while any instance is live and each instance's state freezes when
+its own condition turns false.  Here the state carries the fleet dimension,
+``live`` is a ``(B,)`` mask that selects new or old state, and the loop's
+exit test ``live.any()`` is one host sync per iteration.  Every
+single-pairing point-to-point matcher on a point map matches through kernel
+B4 (``pallas_match.nn_select``) on planar candidates; NDT layers pair with
+their voxel means and planes (``ops/ndt.py``).
 
 ``IcpConfig.per_voxel_nn`` selects the capture, as in the JAX package: on
 (the default, the JAX package's TPU setting) each probed voxel reduces to
@@ -92,15 +103,32 @@ class HornCfg:
 class IcpConfig:
     """Static ICP configuration compiled from a pipeline YAML block.
 
-    ``per_voxel_nn`` is the JAX package's switch of that name (its
-    ``MOLA_TPU_PER_VOXEL_NN``): on, single-pairing point-to-point matchers
-    capture the per-voxel top-2 view and eligible configurations take the
-    fused path; off, they capture every point of each probed voxel and
-    every configuration takes the generic loop.  The JAX package's
-    ``use_pallas`` has no counterpart: the port always matches planar
-    candidates (kernel B4 for CUDA tensors, its plain twin for CPU
-    tensors), where the JAX package without it selects in XLA over the
-    same candidates."""
+    The JAX package reads its ICP switches from ``MOLA_TPU_*`` variables;
+    here they are fields, and the defaults are its TPU setting:
+
+    * ``per_voxel_nn`` (``MOLA_TPU_PER_VOXEL_NN``): on, single-pairing
+      point-to-point matchers capture the per-voxel top-2 view and eligible
+      configurations take the fused path; off, they capture every point of
+      each probed voxel and every configuration takes the generic loop;
+    * ``fused_align`` (``use_pallas``, ``MOLA_TPU_PALLAS``): off, an
+      eligible configuration takes the generic loop over the per-voxel view
+      (capture-once under the hook).  The JAX package then selects in XLA;
+      the port selects on kernel B4 (its plain twin for CPU tensors), which
+      computes the same;
+    * ``capture_kernel`` (``MOLA_TPU_PALLAS_CAPTURE``): off, the fused path
+      captures with the plain per-voxel capture instead of kernel B1, as it
+      does anyway for maps whose slot is wider than 128 lanes;
+    * ``phase1_neighbors`` (``MOLA_TPU_PHASE1_NEIGHBORS``): the probes of
+      the fused path's first capture, at most ``nn_neighbors`` (None: all);
+    * ``refresh_reselect`` (``MOLA_TPU_REFRESH_RESELECT``): the refresh
+      re-ranks kernel B1's rows on kernel B2; off (or without B1's rows), a
+      fresh capture at the settled pose;
+    * ``refresh_neighbors`` (``MOLA_TPU_REFRESH_NEIGHBORS``): the probes of
+      a fresh refresh, at most ``nn_neighbors`` (None: 4 when phase 1 probes
+      8, else phase 1's);
+    * ``fused_refresh`` (``MOLA_TPU_FUSED_REFRESH``): off, the fused path
+      runs one phase, as it does when ``max_iterations`` ends at the
+      refresh point."""
 
     max_iterations: int = 300
     min_abs_step_trans: float = 1e-4
@@ -114,6 +142,12 @@ class IcpConfig:
     anderson_m: int = 0
     hook_min_trans: float = 0.0
     hook_min_rot: float = 0.0
+    fused_align: bool = True
+    capture_kernel: bool = True
+    phase1_neighbors: Optional[int] = None
+    refresh_reselect: bool = True
+    refresh_neighbors: Optional[int] = None
+    fused_refresh: bool = True
 
 
 class IcpResult(NamedTuple):
@@ -139,8 +173,8 @@ def _fused_eligible(cfg: IcpConfig) -> bool:
     )
 
 
-# After this many iterations one candidate refresh (by reselect) makes the
-# top-2 per-voxel view effectively exact for the remaining iterations.
+# After this many iterations one candidate refresh makes the top-2
+# per-voxel view effectively exact for the remaining iterations.
 _FUSED_REFRESH_AT = 8
 
 
@@ -161,31 +195,50 @@ def _align_fused_call(cfg, maps, layers, init_pose: Pose, prior: PosePrior, env,
     maxit = cfg.max_iterations
     thr_tab = _table(mc.threshold, env, B, maxit, dev)
     kc_tab = _table(cfg.kernel_param, env, B, maxit, dev)
-    nbr = cfg.nn_neighbors
     kw = dict(
         min_abs_step_trans=cfg.min_abs_step_trans, min_abs_step_rot=cfg.min_abs_step_rot,
         hook_min_trans=cfg.hook_min_trans, hook_min_rot=cfg.hook_min_rot, weight=mc.weight,
         gn_inner=cfg.gn_inner_iterations, hook_ref_R=init_pose.R, hook_ref_t=init_pose.t,
     )
     prior_args = (prior.mean.R, prior.mean.t, prior.info, thr_tab, kc_tab)
+    # kernel B1 selects within one 128-lane row: W = 128 // stride ways
+    planar_capture = cfg.capture_kernel and m0.stride <= 128
+    nbr1 = cfg.nn_neighbors if cfg.phase1_neighbors is None else min(cfg.nn_neighbors, cfg.phase1_neighbors)
+    two_phase = cfg.max_iterations > _FUSED_REFRESH_AT and cfg.fused_refresh
+    reselect = planar_capture and cfg.refresh_reselect
+
+    def capture_at(q, nbr, return_rows=False):
+        if planar_capture:
+            return pallas_capture.capture_planar(
+                m0.data, m0.voxel_size, m0.epoch, q, nbr, K=m0.K, stride=m0.stride, valid=valid,
+                return_rows=return_rows,
+            )
+        return maps_ops.capture(m0, q, nbr, True)
 
     q0 = se3.transform(init_pose, xyz)
-    cx0, cy0, cz0, cm0, rows0 = pallas_capture.capture_planar(
-        m0.data, m0.voxel_size, m0.epoch, q0, nbr, K=m0.K, stride=m0.stride, valid=valid,
-        return_rows=True,
-    )
+    cs0 = capture_at(q0, nbr1, return_rows=reselect and two_phase)
+    if reselect and two_phase:
+        cs0, rows0 = cs0[:4], cs0[4]
     zero = torch.zeros((B,), dtype=torch.int32, device=dev)
     b1 = torch.clamp(budget, max=_FUSED_REFRESH_AT)
     R1, t1, it1, hook1, conv1, q1 = pallas_icp.align_fused(
-        (cx0, cy0, cz0, cm0), xyz, valid, init_pose.R, init_pose.t, *prior_args, b1, it0=zero, **kw
+        cs0, xyz, valid, init_pose.R, init_pose.t, *prior_args, b1, it0=zero, **kw
     )
-    if cfg.max_iterations <= _FUSED_REFRESH_AT:  # static single phase
+    if not two_phase:  # a budget that ends at the refresh point, or the refresh switched off
         return IcpResult(Pose(R1, t1), q1, it1, hook1, conv1)
 
-    cs1 = pallas_capture.capture_planar_reselect(
-        rows0, m0.voxel_size, m0.epoch, se3.transform(Pose(R1, t1), xyz), q0, nbr,
-        K=m0.K, stride=m0.stride, valid=valid,
-    )
+    qs = se3.transform(Pose(R1, t1), xyz)
+    if reselect:
+        cs1 = pallas_capture.capture_planar_reselect(
+            rows0, m0.voxel_size, m0.epoch, qs, q0, nbr1, K=m0.K, stride=m0.stride, valid=valid,
+        )
+    else:
+        # a fresh capture at the settled pose, over the 4-probe footprint
+        # when phase 1 probed 8 (the JAX package's device A/B: within the
+        # hook bound of the answer and under the annealed threshold)
+        default = 4 if nbr1 == 8 else nbr1
+        nbr2 = min(cfg.nn_neighbors, default if cfg.refresh_neighbors is None else cfg.refresh_neighbors)
+        cs1 = capture_at(qs, nbr2)
     R2, t2, it2, hook2, conv2, q2 = pallas_icp.align_fused(
         cs1, xyz, valid, R1, t1, *prior_args, budget - it1, it0=it1, **kw
     )
@@ -443,11 +496,11 @@ def align(
 ) -> IcpResult:
     """Run the matcher->solver loop from ``init_pose`` for every instance
     until convergence, budget exhaustion or a hook stop: the fused path
-    where the configuration allows it (``per_voxel_nn`` among its
-    conditions, as in the JAX package), else the generic loop.  Under a
-    point axis the fused path's kernels run on every rank on the whole
-    layers (their results are the one-device results), and the generic
-    loop splits each layer's rows over the ranks."""
+    where the configuration allows it (``fused_align`` and
+    ``per_voxel_nn`` among its conditions, as in the JAX package), else the
+    generic loop.  Under a point axis the fused path's kernels run on every
+    rank on the whole layers (their results are the one-device results),
+    and the generic loop splits each layer's rows over the ranks."""
     mc0 = cfg.matchers[0]
     xyz = layers[mc0.local_layer][0]
     B, dev = xyz.shape[0], xyz.device
@@ -458,12 +511,12 @@ def align(
     m0 = maps.get(mc0.global_layer)
     fused = (
         hook_on
+        and cfg.fused_align
         and cfg.per_voxel_nn
         and cfg.horn is None
         and _fused_eligible(cfg)
         and isinstance(m0, VoxelHashMap)
         and m0.points_per_voxel > 2
-        and m0.stride <= 128
         and 2 * cfg.nn_neighbors <= 64
         and xyz.shape[1] <= 16384
     )

@@ -26,7 +26,11 @@ plain twin's, so the two agree to within 3e-3 on R and t, one iteration and
 0.02 quality.
 
 :func:`align_fused` launches the kernel for CUDA tensors and runs
-:func:`align_fused_plain` for CPU tensors.
+:func:`align_fused_plain` for CPU tensors.  Both take the candidates as
+planes ``(cx, cy, cz, cm)``, each ``(B, C, npad)``: kernel B1's or B2's
+output, or a ``voxel_hash.CandSet`` (``pts (B, N, C, 3)``, ``mask (B, N,
+C)``) from the plain capture, which :func:`candset_planes` transposes and
+pads into that layout (the JAX wrapper's :471-490).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from mola_lidar_odometry_tpu_torch.ops import cuda_build
+from mola_lidar_odometry_tpu_torch.ops.voxel_hash import CandSet
 
 BIG = 3.4e38
 N_PARAMS = 74  # per instance: limit, it0, R0 t0, prior R t, hook-ref R t, info(36)
@@ -57,6 +62,23 @@ def _static_thresholds(min_abs_step_trans, min_abs_step_rot, hook_min_trans, hoo
         hook_min_trans**2 if hook_on else BIG,
         rot2(hook_min_rot) if hook_on else BIG,
     )
+
+
+def candset_planes(cand: CandSet) -> Tuple[torch.Tensor, ...]:
+    """A ``CandSet`` as kernel B3's planes ``(cx, cy, cz, cm)``, each ``(B,
+    C, npad)`` f32 with ``npad`` = N rounded up to 128: one transpose and
+    one pad of the four coordinates (mask as 0/1), the candidate order kept
+    (the per-voxel capture's: each probe's nearest point, then each probe's
+    second).  These are query-minor, not kernel B4's ``(B, N, C)`` planes."""
+    B, n, C, _ = cand.pts.shape
+    npad = _round_up(max(n, 128), 128)
+    cand4 = torch.cat([cand.pts, cand.mask.to(torch.float32)[..., None]], dim=-1)  # (B, N, C, 4)
+    planes = torch.nn.functional.pad(cand4.permute(3, 0, 2, 1), (0, npad - n)).contiguous()  # (4, B, C, npad)
+    return tuple(planes.unbind(0))
+
+
+def _planes(planar) -> Tuple[torch.Tensor, ...]:
+    return candset_planes(planar) if isinstance(planar, CandSet) else planar
 
 
 # ---------------------------------------------------------------------------
@@ -175,7 +197,7 @@ def _solve6(H, b, damp):
 
 
 def align_fused_plain(
-    planar,  # (cx, cy, cz, cm), each (B, C, npad) f32 — from kernel B1/B2
+    planar,  # (cx, cy, cz, cm), each (B, C, npad) f32 from kernel B1/B2, or a CandSet
     pts: torch.Tensor,  # (B, N, 3) local points (sensor frame)
     valid: torch.Tensor,  # (B, N) bool
     init_R: torch.Tensor,  # (B, 3, 3)
@@ -201,7 +223,7 @@ def align_fused_plain(
     """Plain twin of kernel B3.  Returns ``(R, t, iters, hook, converged,
     quality)``; ``iters`` counts from ``it0``.  Instances iterate in lock
     step, each frozen once it stops, as the JAX kernel does under ``vmap``."""
-    cx, cy, cz, cm = planar
+    cx, cy, cz, cm = _planes(planar)
     B, C, npad = cx.shape
     n = pts.shape[1]
     dev = pts.device
@@ -383,6 +405,7 @@ def align_fused(
     hook_ref_t=None,
 ):
     """Kernel B3 (see :func:`align_fused_plain` for the contract)."""
+    planar = _planes(planar)
     kw = dict(
         min_abs_step_trans=min_abs_step_trans, min_abs_step_rot=min_abs_step_rot,
         hook_min_trans=hook_min_trans, hook_min_rot=hook_min_rot, weight=weight,
@@ -408,6 +431,7 @@ def align_launcher(
     ``geo`` on the current stream (it raises on a refused launch), and
     ``result()`` reads the outputs of the last launch.  The split lets a
     measurement time the kernel without the packing."""
+    planar = _planes(planar)
     cx, cy, cz, cm = planar
     B, C, npad = cx.shape
     n = pts.shape[1]

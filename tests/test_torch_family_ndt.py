@@ -72,13 +72,14 @@ def _live_voxels(m) -> int:
 
 
 def step_both(rel, knobs, frames=FRAMES, intensity=None, scan_kw=None, trans_tol=TRANS_TOL, rot_tol=ROT_TOL,
-              voxel_tol=0, sequence=None, **caps):
+              voxel_tol=0, sequence=None, port_knobs=None, **caps):
     """Step both packages' ``LidarOdometry`` over the same frames
     (``sim.simulate_sequence(frames, **scan_kw)``, or ``sequence``, a
     ``(trajectory, scans)`` pair); returns (worst translation difference,
     worst rotation difference, JAX outputs, port outputs, the two
     instances).  ``voxel_tol`` bounds the relative difference of a map
-    layer's live voxels (0: equal)."""
+    layer's live voxels (0: equal).  ``knobs`` is the JAX package's
+    environment, ``port_knobs`` the port's ICP overrides to match it."""
     from mola_lidar_odometry_tpu.models.odometry import LidarOdometry as JLO
 
     path = os.path.join(PIPELINES, rel)
@@ -91,7 +92,8 @@ def step_both(rel, knobs, frames=FRAMES, intensity=None, scan_kw=None, trans_tol
     torch.set_num_threads(1)
     try:
         traj, scans = sequence or sim.simulate_sequence(frames, **dict(dict(speed=2.0, noise=0.01), **(scan_kw or {})))
-        jlo, tlo = JLO.from_yaml_file(path, env={}, **caps), TLO.from_yaml_file(path, env={}, device="cpu", **caps)
+        jlo = JLO.from_yaml_file(path, env={}, **caps)
+        tlo = TLO.from_yaml_file(path, env={}, device="cpu", **caps, **(port_knobs or {}))
         worst_t = worst_r = worst_v = 0.0
         jouts, touts = [], []
         for k, (xyz, times, rings, valid) in enumerate(scans):

@@ -280,6 +280,8 @@ def _spec_overrides_match_the_jax_environment():
             if f.name == "matchers":
                 assert len(jblock.matchers) == len(tblock.matchers)
                 continue
+            if not hasattr(jblock, f.name):  # the fused path's switches: read by the JAX package's align
+                continue
             jv, tv = getattr(jblock, f.name), getattr(tblock, f.name)
             assert str(jv) == str(tv), (f.name, jv, tv)
 
