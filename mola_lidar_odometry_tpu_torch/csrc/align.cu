@@ -580,7 +580,39 @@ cudaError_t launch(cudaLaunchConfig_t& cfg, int cs, const float* pts, const unsi
   return cudaGetLastError();
 }
 
+template <int PPT>
+cudaError_t max_active_clusters(int cs, int threads, int smem_bytes, int* clusters) {
+  auto kernel = align_kernel<PPT>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
 }  // namespace
+
+// How many clusters of the launch shape (cs CTAs of `threads` threads, PPT
+// points per thread, smem_bytes of dynamic shared memory) the current device
+// holds at once, into *clusters: a launch of B instances runs in
+// ceil(B / *clusters) waves.  Host code only; returns a cudaError_t code.
+extern "C" int align_max_active_clusters(int cs, int threads, int ppt, int smem_bytes, int* clusters) {
+  cudaError_t e = cudaErrorInvalidValue;
+  if (ppt == 1) e = max_active_clusters<1>(cs, threads, smem_bytes, clusters);
+  if (ppt == 2) e = max_active_clusters<2>(cs, threads, smem_bytes, clusters);
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
 
 // Launch B instances as B clusters of cs CTAs of `threads` threads, PPT
 // points per thread, slice = npad / cs points per CTA; smem_bytes of dynamic

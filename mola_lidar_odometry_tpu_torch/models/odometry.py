@@ -46,7 +46,7 @@ from mola_lidar_odometry_tpu_torch.models.step import Carry, Scan, StepOutput
 from mola_lidar_odometry_tpu_torch.ops import maps as maps_ops, se3
 from mola_lidar_odometry_tpu_torch.utils import serialization, tum
 from mola_lidar_odometry_tpu_torch.utils.config import load_yaml_file, load_yaml_text
-from mola_lidar_odometry_tpu_torch.utils.profiler import Profiler
+from mola_lidar_odometry_tpu_torch.utils.profiler import Profiler, use as use_profiler
 
 _log = logging.getLogger("mola_lidar_odometry_tpu_torch")
 
@@ -346,7 +346,9 @@ class LidarOdometry:
                 if self._icp_log is not None and self._icp_log.want_frame():
                     with prof.enter("icp_log"):  # the replay on the pre-step carry
                         self._write_icp_log(scan)
-                with prof.enter("step"):  # issuing the step (and its own syncs)
+                # the step's own ``step`` span (issuing it, and its own syncs) and
+                # its layers' spans land here, as onLidar.step[.filters|.icp|.map]
+                with use_profiler(prof):
                     self.carry, out = self._step(self.carry, scan)
                 with prof.enter("readback"):  # waits for the device
                     out = output_to_host(out)

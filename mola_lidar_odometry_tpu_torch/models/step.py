@@ -42,6 +42,7 @@ from mola_lidar_odometry_tpu_torch.ops.se3 import Pose
 from mola_lidar_odometry_tpu_torch.ops.solver import PosePrior
 from mola_lidar_odometry_tpu_torch.ops.voxel_hash import InsertStats
 from mola_lidar_odometry_tpu_torch.parallel import point_axis as pa
+from mola_lidar_odometry_tpu_torch.utils import profiler
 
 _TWIST_VARS = ("vx", "vy", "vz", "wx", "wy", "wz")
 
@@ -231,7 +232,11 @@ def make_step(spec: OdometrySpec, axis=None) -> Callable[[Carry, Scan], Tuple[Ca
     slice of every scan's points and keeps the carry the same on every rank
     of the point group: the counts and radii of slices are all-reduced,
     the ICP and map layers are whole (gathered where they are still
-    slices), and the ICP sums its normal equations over the group."""
+    slices), and the ICP sums its normal equations over the group.
+
+    The step times itself on the active profiler (``utils/profiler.py``):
+    a ``step`` span with one child a layer (``filters``, ``icp``, ``map``),
+    and a count of its blocking reads of device values (``host_syncs``)."""
     dsk_ops = deskew_ops(spec.filter2)
 
     def redeskew(layers, twist):
@@ -292,12 +297,12 @@ def make_step(spec: OdometrySpec, axis=None) -> Callable[[Carry, Scan], Tuple[Ca
         rem, pending, twist = correction_state(res0, nav_est.twist, maxit, torch.zeros_like(maxit))
         pose, corr, quality, iters = res0.pose, pending.to(torch.int32), res0.quality, res0.iterations
         vary = {k: layers[k] for k in vary_names}
-        # One host sync per correction round (the ``any``): the JAX package's
+        # One host sync per loop test (the ``any``): the JAX package's
         # batched while_loop runs until no instance is pending; rounds are
         # rare (a hook stop), and removing the sync belongs to a later
         # CUDA-graph change.  Under a point axis every rank takes the same
         # branch (the ``any`` is all-reduced).
-        while bool(pa.all_any(pending.any(), axis)):
+        while profiler.host_bool(pa.all_any(pending.any(), axis)):
             redeskewed = redeskew(with_vary(vary), twist)
             vary2 = {k: redeskewed[k] for k in vary_names}
             res = align_once(pose, with_vary(vary2), rem)
@@ -308,11 +313,18 @@ def make_step(spec: OdometrySpec, axis=None) -> Callable[[Carry, Scan], Tuple[Ca
         return pose, quality, iters, corr, with_vary(vary), init_pose
 
     def step(c: Carry, scan: Scan) -> Tuple[Carry, StepOutput]:
+        # one span a layer on the active profiler; the rest is the step's own
+        prof = profiler.active()
+        with prof.enter("step", new_step=True):
+            return body(c, scan, prof)
+
+    def body(c: Carry, scan: Scan, prof: profiler.Profiler) -> Tuple[Carry, StepOutput]:
         stamp = scan.stamp
         B, dev = stamp.shape[0], stamp.device
         drop = (stamp - c.last_time) < spec.min_time_between_scans  # 1. masked whole-step skip
         first_ever = c.frame_idx == 0
-        c1, env, layers = filter_scan(spec, c, scan, axis)  # 2-5
+        with prof.enter("filters"):
+            c1, env, layers = filter_scan(spec, c, scan, axis)  # 2-5
         first_time, est_range0, raw_pc = c1.first_time, c1.est_range, layers["raw"]
 
         # 2b. sensor range IIR update (ICP-layer radius)
@@ -340,11 +352,12 @@ def make_step(spec: OdometrySpec, axis=None) -> Callable[[Carry, Scan], Tuple[Ca
         map_empty = ~c.map_has_content
 
         # 8. first-scan seed | ICP: both computed, selected per instance
-        icp = run_icp_with_corrections(c1._replace(est_range=est_range), layers, nav_est, env, dt_scan)
-        seed_pose = Pose(c.pose_R, c.pose_t)
-        zero_i = torch.zeros_like(c.frame_idx)
-        first = (seed_pose, torch.ones_like(stamp), zero_i, zero_i, layers, seed_pose)
-        pose, quality, iters, corrections, layers_f, init_guess = select(map_empty, first, icp)
+        with prof.enter("icp"):
+            icp = run_icp_with_corrections(c1._replace(est_range=est_range), layers, nav_est, env, dt_scan)
+            seed_pose = Pose(c.pose_R, c.pose_t)
+            zero_i = torch.zeros_like(c.frame_idx)
+            first = (seed_pose, torch.ones_like(stamp), zero_i, zero_i, layers, seed_pose)
+            pose, quality, iters, corrections, layers_f, init_guess = select(map_empty, first, icp)
 
         # 9. gate
         accepted = quality >= spec.min_icp_goodness
@@ -401,26 +414,27 @@ def make_step(spec: OdometrySpec, axis=None) -> Callable[[Carry, Scan], Tuple[Ca
         update_local_map = update_local_map & ~restart & active
 
         # 13. local-map update: masked inserts, then the rolling-slab prune
-        layer_defs = {d.name: d for d in spec.map_layers}
-        maps_post: Dict[str, Any] = {}
-        for name, d in layer_defs.items():
-            m0 = c.maps[name]
-            vs = torch.where(map_empty & active, _as_batch(d.voxel_size(env_kf), stamp), m0.voxel_size)
-            maps_post[name] = maps_ops.clear_where(maps_ops.set_voxel_size(m0, vs), restart)
-        ins_stats = InsertStats.zero(B, dev)
-        for op in spec.map_inserts:
-            insert_pc = pa.gather_cloud(layers_f.get(op.input_layer, layers_f[spec.icp_local_layer]), axis)
-            insert_global = insert_pc._replace(
-                xyz=se3.transform(new_pose, insert_pc.xyz), valid=insert_pc.valid & update_local_map[:, None]
-            )
-            maps_post[op.target_map_layer], st = maps_ops.insert_stats(
-                maps_post[op.target_map_layer], insert_global, new_pose.t, layer_defs[op.target_map_layer]
-            )
-            ins_stats = ins_stats + st
-        for name, d in layer_defs.items():
-            maps_post[name] = maps_ops.prune_farther_than_amortized(
-                maps_post[name], new_pose.t, d.remove_voxels_farther_than(env_kf), c.frame_idx
-            )
+        with prof.enter("map"):
+            layer_defs = {d.name: d for d in spec.map_layers}
+            maps_post: Dict[str, Any] = {}
+            for name, d in layer_defs.items():
+                m0 = c.maps[name]
+                vs = torch.where(map_empty & active, _as_batch(d.voxel_size(env_kf), stamp), m0.voxel_size)
+                maps_post[name] = maps_ops.clear_where(maps_ops.set_voxel_size(m0, vs), restart)
+            ins_stats = InsertStats.zero(B, dev)
+            for op in spec.map_inserts:
+                insert_pc = pa.gather_cloud(layers_f.get(op.input_layer, layers_f[spec.icp_local_layer]), axis)
+                insert_global = insert_pc._replace(
+                    xyz=se3.transform(new_pose, insert_pc.xyz), valid=insert_pc.valid & update_local_map[:, None]
+                )
+                maps_post[op.target_map_layer], st = maps_ops.insert_stats(
+                    maps_post[op.target_map_layer], insert_global, new_pose.t, layer_defs[op.target_map_layer]
+                )
+                ins_stats = ins_stats + st
+            for name, d in layer_defs.items():
+                maps_post[name] = maps_ops.prune_farther_than_amortized(
+                    maps_post[name], new_pose.t, d.remove_voxels_farther_than(env_kf), c.frame_idx
+                )
 
         icp_layer_pc = layers_f.get(spec.icp_local_layer, raw_pc)
         map_layer_pc = layers_f.get(spec.map_inserts[0].input_layer, icp_layer_pc) if spec.map_inserts else icp_layer_pc

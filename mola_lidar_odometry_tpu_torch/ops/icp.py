@@ -69,6 +69,7 @@ from mola_lidar_odometry_tpu_torch.ops.solver import (
 )
 from mola_lidar_odometry_tpu_torch.ops.voxel_hash import CandSet, VoxelHashMap
 from mola_lidar_odometry_tpu_torch.parallel import point_axis as pa
+from mola_lidar_odometry_tpu_torch.utils import profiler
 from mola_lidar_odometry_tpu_torch.utils.expr import Expr
 
 
@@ -472,7 +473,7 @@ def _align_generic(cfg: IcpConfig, maps, layers, init_pose: Pose, prior: PosePri
     )
     while True:
         live = ~state[2] & ~state[3] & (state[1] < budget)
-        if not bool(pa.all_any(live.any(), axis)):  # the loop's one host sync per iteration
+        if not profiler.host_bool(pa.all_any(live.any(), axis)):  # the loop's one host sync per iteration
             break
         state = _select(live, body(state), state)
     pose, it, converged, hook = state[:4]

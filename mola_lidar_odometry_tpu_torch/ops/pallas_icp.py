@@ -43,6 +43,7 @@ import torch
 
 from mola_lidar_odometry_tpu_torch.ops import cuda_build
 from mola_lidar_odometry_tpu_torch.ops.voxel_hash import CandSet
+from mola_lidar_odometry_tpu_torch.utils import profiler
 
 BIG = 3.4e38
 N_PARAMS = 74  # per instance: limit, it0, R0 t0, prior R t, hook-ref R t, info(36)
@@ -404,7 +405,9 @@ def align_fused(
     weight: float = 1.0, damping: float = 1e-8, gn_inner: int = 2, it0=None, hook_ref_R=None,
     hook_ref_t=None,
 ):
-    """Kernel B3 (see :func:`align_fused_plain` for the contract)."""
+    """Kernel B3 (see :func:`align_fused_plain` for the contract).  On the
+    card each launch adds its waves (:func:`max_active_clusters`) to the
+    active profiler's ``b3.waves`` counter when that profiler is enabled."""
     planar = _planes(planar)
     kw = dict(
         min_abs_step_trans=min_abs_step_trans, min_abs_step_rot=min_abs_step_rot,
@@ -415,10 +418,34 @@ def align_fused(
     if not pts.is_cuda:
         return align_fused_plain(*args, **kw)
     cx = planar[0]
-    launch, result = align_launcher(align_geometry(cx.shape[2], cx.shape[1]), *args, **kw)
+    geo = align_geometry(cx.shape[2], cx.shape[1])
+    launch, result = align_launcher(geo, *args, **kw)
     launch()
     align_fused.launches += 1
+    prof = profiler.active()
+    if prof.enabled:
+        prof.add("b3.waves", -(-cx.shape[0] // max_active_clusters(geo, pts.device)))
     return result()
+
+
+_clusters = {}  # (geometry, device) -> max_active_clusters
+
+
+def max_active_clusters(geo: AlignGeometry, device) -> int:
+    """Clusters of shape ``geo`` that ``device`` runs at once
+    (``cudaOccupancyMaxActiveClusters``, asked once per shape and card): a
+    launch of B instances runs in ceil(B / this) waves."""
+    key = (geo, str(device))
+    if key not in _clusters:
+        fn = cuda_build.load("align").align_max_active_clusters
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            cuda_build.check(fn(geo.cluster, geo.threads, geo.ppt, geo.smem_bytes, ctypes.byref(n)),
+                             "align_max_active_clusters")
+        _clusters[key] = n.value
+    return _clusters[key]
 
 
 def align_launcher(
